@@ -1,10 +1,10 @@
-"""cvx_tpu — a TPU-native dense convex-minimization framework.
+"""cvx_tpu — a dense convex-minimization framework for accelerators.
 
 Brand-new implementation of the capabilities of the reference library
 spyqqqdia/cvx (Boyd–Vandenberghe interior-point methods: log-barrier and
 infeasible-start primal-dual solvers, phase-I feasibility analysis, convex
 duality, and Kullback–Leibler distance minimization), re-designed for
-JAX/XLA/Pallas on TPU: autodiff objectives, jit-compiled lax.while_loop
+JAX/XLA/Pallas (the GPU is the accelerator of record): autodiff objectives, jit-compiled lax.while_loop
 solver loops, vmap instance batching, and shard_map distribution.
 
 See SURVEY.md for the layer map and the reference cross-references.

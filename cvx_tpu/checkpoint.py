@@ -20,13 +20,9 @@ carries), so checkpointing is pure serialization:
     (BR_fast): fleet preemption coverage for the fast path, not only the
     dense one.
 
-Fused Pallas kernels (ops/pallas_kl.py, ops/pallas_kl_dual.py) run a FIXED
-branch-free schedule with no mid-kernel state to checkpoint; their resume
-story is: re-run the kernel with the checkpointed iterate as the start
-(``DistKL.solve_jittable(sol.x, method="fused")`` — x is an interior
-point, and re-running the schedule from a better start only sharpens the
-result).  The dual kernel solves in ~16 ms/10k instances; re-running it
-outright IS the resume.
+The fused dual kernel (ops/pallas_kl_dual.py) runs a FIXED branch-free
+schedule with no mid-kernel state to checkpoint and solves a whole fleet
+in one call: re-running it outright IS the resume.
 
 Large batched runs (the north-star fleet workloads) can therefore be
 stopped and continued for free, e.g. between preemptions.

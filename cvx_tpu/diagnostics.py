@@ -2,7 +2,7 @@
 
 Replaces the reference's observability story (SURVEY.md sections 5.1/5.5):
 ``Logger`` (file prints, cvx/Logger.scala), integer ``debugLevel`` gates, and
-per-iteration console dumps.  On TPU the equivalents are:
+per-iteration console dumps.  Here the equivalents are:
 
   * ``trace(...)``: a jax.profiler trace context (view in TensorBoard /
     Perfetto) around a solve — replaces debugLevel>2 eigen-dumps with real

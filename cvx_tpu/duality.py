@@ -30,18 +30,11 @@ from .tree import mxu_exact
 def _small_solve(A: jax.Array, b: jax.Array) -> jax.Array:
     """Solve a tiny symmetric positive-definite system in closed form.
 
-    Batched tiny LU (``jnp.linalg.solve`` under vmap) scalarizes on TPU —
-    measured ~100x slower than this closed form for the (batch, 3, 3)
-    Newton systems of the KL dual — and f64 LU does not lower on the TPU
-    backend at all.  dim <= 3 uses the adjugate; dim 4-8 an UNROLLED
-    scalar Cholesky (straight-line code, vectorizes cleanly under vmap);
-    only dim > 8 falls back to LU.  Callers (the dual Newton systems) are
-    SPD by construction: B diag(y) B' + ridge with unit rows for frozen
-    coordinates, so dim > 8 uses Cholesky + triangular solves — unlike LU
-    these decompose to basic XLA ops on TPU and therefore work under
-    emulated f64 (LuDecomposition is f32-only on that backend, so a
-    jnp.linalg.solve fallback would fail to COMPILE on the certified
-    route's dim > 8 branch).
+    dim <= 3 uses the adjugate; dim 4-8 an UNROLLED scalar Cholesky
+    (straight-line code, vectorizes cleanly under vmap into elementwise
+    ops over the batch); dim > 8 a Cholesky plus triangular solves.
+    Callers (the dual Newton systems) are SPD by construction:
+    B diag(y) B' + ridge with unit rows for frozen coordinates.
     """
     dim = A.shape[0]
     if dim == 1:
@@ -68,10 +61,8 @@ def _small_solve(A: jax.Array, b: jax.Array) -> jax.Array:
             (c01 * b[0] + c11 * b[1] + c21 * b[2]) / det,
             (c02 * b[0] + c12 * b[1] + c22 * b[2]) / det,
         ])
-    # floor for pathological (masked-singular) instances; f32's tiny, NOT
-    # the dtype's own: TPU f64 emulation (float32x2) has only the f32
-    # exponent range, so an f64 tiny (2e-308) silently underflows to 0 on
-    # device and the floor stops flooring
+    # floor for pathological (masked-singular) instances (f32's tiny for
+    # every dtype: the floor only has to keep garbage steps finite)
     tiny = jnp.asarray(float(jnp.finfo(jnp.float32).tiny), A.dtype)
     if dim <= 8:
         # unrolled Cholesky A = L L' + forward/back substitution; max(.,
@@ -107,8 +98,7 @@ def _small_solve(A: jax.Array, b: jax.Array) -> jax.Array:
 
 
 def _polish_dual(obj: Any, z: jax.Array, num_ineq: int,
-                 steps: int, value_band_eps: float | None = None
-                 ) -> jax.Array:
+                 steps: int) -> jax.Array:
     """Active-set projected-Newton polish of the dual optimum.
 
     The barrier solve stops at duality gap ~ m/t; the PRIMAL recovery
@@ -132,13 +122,9 @@ def _polish_dual(obj: Any, z: jax.Array, num_ineq: int,
     ts = 0.5 ** jnp.arange(8, dtype=dtype)  # 1, 1/2, ..., 1/128
     eps = jnp.finfo(dtype).eps
     # the gradient-fallback acceptance band must cover the VALUE's
-    # evaluation error, or near-optimal steps get deterministically
-    # rejected.  Native arithmetic: 32 eps.  TPU-EMULATED f64 evaluates
-    # exp/log-heavy values to only ~1e-12 relative (measured), so callers
-    # on that path pass value_band_eps explicitly (kl_certify).
-    band_eps = (32.0 * eps if value_band_eps is None
-                else jnp.maximum(32.0 * eps,
-                                 jnp.asarray(value_band_eps, dtype)))
+    # evaluation error (32 eps), or near-optimal steps get
+    # deterministically rejected
+    band_eps = 32.0 * eps
     eye = jnp.eye(dim, dtype=dtype)
 
     def project(z_):
@@ -166,6 +152,21 @@ def _polish_dual(obj: Any, z: jax.Array, num_ineq: int,
         Hf = H * (freef[:, None] * freef[None, :]) + jnp.diag(1.0 - freef)
         Hf = Hf + (10.0 * eps * jnp.mean(jnp.abs(jnp.diag(Hf)))) * eye
         d = -_small_solve(Hf, gf)
+        # a lam ALREADY at its bound cannot move down: the mask above
+        # freezes it when g > 0; this catches the coupled g < 0, d < 0 case,
+        # whose projected steps are no descent direction (the same guard as
+        # the fused kernel and _kl_warm_polish)
+        d = jnp.where(jnp.logical_and(mask, jnp.logical_and(z <= 0.0,
+                                                            d < 0.0)),
+                      0.0, d)
+        # far-field trust cap (the fused kernel's): from a COLD start the
+        # exp-linear dual is locally near-linear, the Newton step is
+        # O(grad/hess) = O(100+) at n >= 1000, and every backtracking
+        # fraction of it overshoots, so the iterate crawls.  Capping the
+        # step at 8 per coordinate gives log-scale progress instead; near
+        # the optimum the cap is inactive
+        l_trust = jnp.asarray(8.0, dtype)
+        d = d * (l_trust / jnp.maximum(jnp.max(jnp.abs(d)), l_trust))
         # exact step to the first lam_i >= 0 boundary crossed (the next
         # iteration freezes it and Newton continues in the rest)
         neg = jnp.logical_and(mask, d < 0)
@@ -244,7 +245,7 @@ def solve_dual(
     pars = pars or SolverParams()
     # dtype follows the dual objective's DATA (f32 problems keep the f32
     # fast path even under jax_enable_x64, where a canonical-float default
-    # would silently promote the whole dual solve to emulated f64 on TPU)
+    # would silently promote the whole dual solve to f64)
     leaves = jax.tree_util.tree_leaves(neg_dual_objective)
     dtype = jnp.result_type(*leaves) if leaves else jnp.result_type(float)
     z0 = jnp.full((dual_dim,), pars.dual_start, dtype)

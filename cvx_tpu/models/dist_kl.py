@@ -1,6 +1,6 @@
 """Kullback–Leibler distance minimization over discrete distributions.
 
-TPU-native re-design of cvx/Dist_KL.scala — the reference's flagship
+A re-design of cvx/Dist_KL.scala for batched accelerators — the reference's flagship
 application (README.md:7-8):
 
     Q* = argmin_Q  d_KL(Q, P)   s.t.   H Q <= u,   A Q = r,
@@ -36,6 +36,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import backend
 from ..duality import solve_dual
 from ..problem.constraint_set import ConstraintSet
 from ..problem.constraints import positivity, rows_leq
@@ -44,7 +45,6 @@ from ..problem.equality import EqualityConstraint, sum_to_one
 from ..solvers.barrier import barrier_solve
 from ..solvers.phase1 import feasibility_analysis, find_feasible_point
 from ..solvers.primal_dual import primal_dual_solve
-from ..ops.pallas_kl_dual import _FUSED_MAX_DIM
 from ..solvers.types import Solution, SolverParams
 from ..tree import mxu_exact, pytree_dataclass, static_field
 
@@ -84,11 +84,11 @@ class KLObjective:
 class _NegDualObjective:
     """-L*(z) = w.z + R.exp(-B'z) (convex), docs/maxent.pdf eq.(20)-(22).
 
-    All contractions run at Precision.HIGHEST: on TPU the default f32
-    matmul goes through the MXU in bfloat16 (eps ~ 8e-3), which poisons
-    the tiny (dim ~ 3) dual Newton systems — gradients stall at ~1e-3 and
-    the recovered primal violates its constraints.  These are O(n * dim)
-    matvecs, so full precision costs nothing.
+    All contractions run at Precision.HIGHEST: a reduced-precision f32
+    matmul (TF32 on the GPU, ~1e-3 relative) poisons the tiny (dim ~ 3)
+    dual Newton systems — gradients stall at ~1e-3 and the recovered
+    primal violates its constraints.  These are O(n * dim) matvecs, so
+    full precision costs nothing.
     """
 
     B: jax.Array   # (mI + 1 + mE, n)
@@ -126,8 +126,7 @@ def _prior_terms(prior, n, dtype):
 
 
 @mxu_exact
-def kl_dual_gap(H, u, A, b, x, polish_steps: int = 8,
-                value_band_eps: float | None = None, prior=None):
+def kl_dual_gap(H, u, A, b, x, polish_steps: int = 8, prior=None):
     """MEASURED duality-gap certificate for the KL problem at iterate ``x``.
 
     ``H`` (k, n) / ``u`` (k,) are the scenario inequality rows; ``A`` (p, n) /
@@ -170,16 +169,13 @@ def kl_dual_gap(H, u, A, b, x, polish_steps: int = 8,
     BBt = BBt + (10 * jnp.finfo(dtype).eps
                  * jnp.mean(jnp.abs(jnp.diag(BBt)))
                  * jnp.eye(dim, dtype=dtype))
-    # closed-form/unrolled small solve: batched tiny LU scalarizes under
-    # vmap on TPU, and f64 LU does not lower on the TPU backend AT ALL
-    # ("Only F32 and C64 types are implemented in LuDecomposition")
+    # closed-form/unrolled small solve of the (dim, dim) system
     z = _small_solve(BBt, jnp.einsum("in,n->i", B, c,
                                      precision="highest"))
     z = jnp.where(mask, jnp.maximum(z, 0.0), z)
 
     neg_dual = _NegDualObjective(B=B, w=w, R=R)
-    z = _polish_dual(neg_dual, z, num_ineq=k, steps=polish_steps,
-                     value_band_eps=value_band_eps)
+    z = _polish_dual(neg_dual, z, num_ineq=k, steps=polish_steps)
     dual_val = -neg_dual.value(z)
     primal_val = jnp.einsum("n,n->", x, jnp.log(x) - logp,
                             precision="highest")
@@ -197,8 +193,7 @@ def _kl_warm_polish(B, w, R, z, k, steps: int):
     ~1e-6-accurate start the iteration is inside the quadratic-convergence
     basin, so each step costs ONE (n,)-exp + a handful of O(n dim)
     contractions; the line-searched ``duality._polish_dual`` step costs
-    ~25 exps, which under TPU f64 EMULATION (~50 ms per step at 10k x 100)
-    is the whole certified-path budget.  Monotonicity is not enforced —
+    ~25 exps.  Monotonicity is not enforced —
     the caller measures the final gap and keeps the better of
     {refined, input}, so a (never observed) bad step cannot corrupt the
     certificate, only weaken it.
@@ -209,10 +204,7 @@ def _kl_warm_polish(B, w, R, z, k, steps: int):
     dtype = z.dtype
     eps = jnp.finfo(dtype).eps
     ineq = jnp.arange(dim) < k
-    # HOST-computed clip bound: jnp.log(finfo(f64).max) would materialize
-    # 1.8e308 on the device, where TPU's float32x2 f64 emulation has only
-    # the f32 exponent range — in EAGER mode (no XLA constant folding) the
-    # constant overflows to inf and the whole polish NaNs out silently
+    # host-computed clip bound for exp(-B'z) in the working dtype
     max_e = jnp.asarray(0.9 * float(np.log(np.finfo(np.float64).max)
                                     if dtype == jnp.float64
                                     else np.log(np.finfo(np.float32).max)),
@@ -227,10 +219,8 @@ def _kl_warm_polish(B, w, R, z, k, steps: int):
         free = jnp.where(at_bound, 0.0, 1.0).astype(dtype)
         Hm = jnp.einsum("in,n,jn->ij", B, y, B, precision="highest")
         Hm = Hm * (free[:, None] * free[None, :]) + jnp.diag(1.0 - free)
-        # ridge at the EMULATED-f64 accuracy floor (~1e-14 relative einsum
-        # error measured on v5e), not native eps — keeps the Cholesky of a
-        # near-degenerate active-set Hessian stable without limiting the
-        # 1e-8 contract
+        # 1e-13 relative ridge: keeps the Cholesky of a near-degenerate
+        # active-set Hessian stable without limiting the 1e-8 contract
         Hm = Hm + 1e-13 * jnp.diag(jnp.diag(Hm))
         dz = _small_solve(Hm, -(g * free))
         # a lam already AT its bound cannot move down (the mask catches
@@ -281,14 +271,12 @@ def kl_certify(H, u, A, b, x, polish_steps: int = 6, z0=None, prior=None,
     1e-8 duality-gap contract and certify it with measured residuals.
 
     The reference's whole accuracy story is f64 with gap < tolSolver = 1e-8
-    (SolverParams.scala:41, BarrierSolver.scala:102).  The f32 TPU routes
+    (SolverParams.scala:41, BarrierSolver.scala:102).  The f32 routes
     floor at a ~1e-6 measured gap (f32 value-resolution limit); this pass
-    lifts the data and the iterate to f64 — EMULATED on TPU, where exp is
-    accurate to ~2e-12 relative and einsums to ~1e-14 (measured on v5e) —
-    polishes a dual-feasible z, recovers the refined primal
-    x(z) = R exp(-B'z)/sum, and keeps whichever of {refined, input} primal
-    certifies the smaller gap + violation score.  O(n dim^2) per polish
-    step: trivial FLOPs even under f64 emulation.
+    lifts the data and the iterate to native f64, polishes a dual-feasible
+    z, recovers the refined primal x(z) = R exp(-B'z)/sum, and keeps
+    whichever of {refined, input} primal certifies the smaller gap +
+    violation score.  O(n dim^2) per polish step.
 
     Two dual-start modes:
       * ``z0=None`` (cold): least-squares stationarity fit at ``x`` +
@@ -298,8 +286,7 @@ def kl_certify(H, u, A, b, x, polish_steps: int = 6, z0=None, prior=None,
         exactly ``kl_dual_fused``'s third output): the active set is
         already settled, so a lean fixed-count Newton polish with NO
         line-search value evaluations suffices (``_kl_warm_polish``) —
-        ~25x fewer exps per step, the difference between ~2.5k and ~60k
-        certified instances/s under TPU f64 emulation.
+        ~25x fewer exps per step.
 
     ``A``/``b`` are the FULL equality system (sum-to-one row included).
     Requires ``jax_enable_x64`` (raises at trace time otherwise — an f32
@@ -317,8 +304,8 @@ def kl_certify(H, u, A, b, x, polish_steps: int = 6, z0=None, prior=None,
     f64 = jnp.float64
     if jnp.zeros((), f64).dtype != jnp.float64:
         raise RuntimeError(
-            "kl_certify needs jax_enable_x64 (on TPU f64 is emulated but "
-            "accurate; without x64 the cast silently stays f32)")
+            "kl_certify needs jax_enable_x64 (without x64 the cast "
+            "silently stays f32)")
     H64 = H.astype(f64)
     u64 = u.astype(f64)
     A64 = A.astype(f64)
@@ -330,23 +317,14 @@ def kl_certify(H, u, A, b, x, polish_steps: int = 6, z0=None, prior=None,
     w = jnp.concatenate([u64, b64])
     logp, R = _prior_terms(prior, n, f64)
     if z0 is None:
-        # TPU f64 is EMULATED: exp/log-heavy values carry ~1e-12 relative
-        # error (measured on v5e), far above native-f64 rounding.  The
-        # polish acceptance band must cover it or near-optimal steps get
-        # deterministically rejected and tail instances floor at ~3e-8 gap.
-        on_tpu = jax.devices()[0].platform == "tpu"
-        band = 3e-11 if on_tpu else None
         gap0, z = kl_dual_gap(H64, u64, A64, b64, x64,
-                              polish_steps=polish_steps,
-                              value_band_eps=band, prior=prior)
+                              polish_steps=polish_steps, prior=prior)
     else:
         z = _kl_warm_polish(B, w, R, z0.astype(f64), k,
                             steps=polish_steps)
         gap0 = None   # computed below from the shared exp(-B'z) pass
     # ONE transcendental (n,) pass serves the refined primal, BOTH gap
-    # terms, and f_ref: under TPU float32x2 f64 emulation each (batch, n)
-    # exp/log pass costs ~6 ms per 10k x 100 batch — the certified path's
-    # whole budget — so every duplicate pass here is ~20% of the route.
+    # terms, and f_ref
     Btz = jnp.einsum("in,i->n", B, z, precision="highest")
     y = R * jnp.exp(-Btz)               # = exp(-B'z - 1 + log p)
     sum_y = jnp.sum(y)
@@ -432,12 +410,11 @@ class DistKL:
         (normalized here) generalizing the objective to d_KL(Q, p) — the
         reference's Dist_KL fixes p uniform (Dist_KL.scala:218,259); all
         routes (BR/PD/BR_fast/dual/dual_fast/dual_fused/certified) accept
-        a general prior, only the fused PRIMAL kernel falls back to
-        BR_fast."""
+        a general prior."""
         # default to the INPUT arrays' joint dtype (f32 data stays f32 even
         # under jax_enable_x64, which the certified route requires) — a
-        # canonical-float default would silently upcast to f64 and push the
-        # Pallas kernel off its x32 trace guard; same policy as QP.create
+        # canonical-float default would silently upcast the f32 fleet to
+        # f64; same policy as QP.create
         if dtype is None:
             given = [v for v in (H, u, A, r) if v is not None]
             dtype = (jnp.result_type(*given, float) if given
@@ -559,8 +536,8 @@ class DistKL:
         z0 = jnp.full((self.dual_dim,), pars.dual_start, dtype)
         z = _polish_dual(d, z0, num_ineq=k, steps=steps)
         x = self.primal_optimum(z)
-        # f(x) - g(z), measured; highest precision: the bf16-MXU default
-        # (eps ~8e-3) would put ~1e-3 noise on the certificate itself
+        # f(x) - g(z), measured; highest precision: a reduced-precision
+        # matmul (~1e-3 relative) would put ~1e-3 noise on the certificate
         gap = self.objective.value(x) + d.value(z)
         nan = jnp.asarray(jnp.nan, dtype)
         grad_norm = jnp.linalg.norm(d.grad(z))
@@ -596,33 +573,31 @@ class DistKL:
         return viol
 
     def solve_dual_fused(self, pars: SolverParams | None = None,
-                         steps: int = 16) -> Solution:
+                         steps: int = 16,
+                         interpret: bool = False) -> Solution:
         """Whole dual solve in one Pallas kernel (method="dual_fused") —
-        see ops/pallas_kl_dual.py.  The kernel covers dual dimension
-        k + 1 + mE <= 16 (k inequality rows, sum-to-one, mE extra
-        equalities); larger shapes fall back to the XLA dual_fast route."""
+        see ops/pallas_kl_dual.py.  The route is ``backend.kl_dual_route``'s
+        choice: the Triton kernel on the GPU (dual dim k + 1 + mE <=
+        ``backend.TRITON_MAX_DIM``, n <= ``backend.TRITON_MAX_N``), the
+        same kernel (dim <= 16) in the Pallas
+        interpreter only when ``interpret=True``, and otherwise the XLA
+        dual_fast route."""
         pars = pars or SolverParams()
         k = self.H.shape[0]
         m_eq = self.A.shape[0]
-        if k + m_eq < 1 or k + 1 + m_eq > _FUSED_MAX_DIM:
+        route = backend.kl_dual_route(self.n, k, m_eq, interpret=interpret)
+        if route == "xla":
             return self.solve_dual_newton(pars)
         from ..ops.pallas_kl_dual import kl_dual_fused
 
         dtype = self.H.dtype
-        # interpret mode off-TPU (Mosaic only lowers for real TPUs).
-        # bt=8 (the f32 min tile): this is the SINGLE-instance entry
-        # (B=1), often vmapped — a bt=256 tile would burn 255/256 of the
-        # kernel work on padding under vmap batching.  The direct batch
-        # entries (bench, solve_certified_batch) call kl_dual_fused
-        # themselves with bt=256.
-        on_tpu = jax.devices()[0].platform == "tpu"
         lp = None if self.prior is None else jnp.log(self.prior)
         x, gap, z = kl_dual_fused(self.H[None], self.u[None],
                                   self.A[None] if m_eq > 0 else None,
                                   self.r[None] if m_eq > 0 else None,
                                   log_prior=lp, n_steps=steps,
                                   z0=float(pars.dual_start),
-                                  interpret=not on_tpu, bt=8)
+                                  interpret=route == "interpret")
         x, gap, z = x[0], gap[0], z[0]
         nan = jnp.asarray(jnp.nan, dtype)
         eps = jnp.finfo(dtype).eps
@@ -642,24 +617,23 @@ class DistKL:
 
     def solve_certified(self, pars: SolverParams | None = None,
                         steps: int = 16,
-                        polish_steps: int = 2) -> Solution:
-        """F32 fused-kernel dual solve + on-chip f64 finishing pass
-        (method="dual_fused_cert"): the TPU route to the reference's
-        WRITTEN accuracy contract gap < tolSolver = 1e-8
-        (SolverParams.scala:41, BarrierSolver.scala:102).
+                        polish_steps: int = 2,
+                        interpret: bool = False) -> Solution:
+        """F32 dual solve + native-f64 finishing pass
+        (method="dual_fused_cert"): the route to the reference's WRITTEN
+        accuracy contract gap < tolSolver = 1e-8 (SolverParams.scala:41,
+        BarrierSolver.scala:102).
 
-        The f32 Pallas kernel does the heavy lifting; ``kl_certify`` then
-        lifts the iterate AND the kernel's dual z to (TPU-emulated) f64,
-        runs the lean warm-started Newton polish (active set already
-        settled; quadratic convergence from the ~1e-6 f32 start reaches
-        the emulated-f64 floor in 2 steps — the round-3 default of 3 was
-        pure margin; measured on v5e: 2.7e-14 max gap over 10k instances
-        at every polish count 2..4), and returns the
-        refined primal with MEASURED gap / inequality / equality
-        residuals.  Requires ``jax_enable_x64``.
+        ``solve_dual_fused`` does the heavy lifting in f32; ``kl_certify``
+        then lifts the iterate AND the dual z to f64 and runs the lean
+        warm-started Newton polish (the active set is already settled;
+        quadratic convergence from the ~1e-6 f32 start reaches the f64
+        floor in 2 steps) and returns the refined primal with MEASURED
+        gap / inequality / equality residuals.  Requires
+        ``jax_enable_x64``.
         """
         pars = pars or SolverParams()
-        sol = self.solve_dual_fused(pars, steps=steps)
+        sol = self.solve_dual_fused(pars, steps=steps, interpret=interpret)
         eqs = self.equalities
         cert = kl_certify(self.H, self.u, eqs.A, eqs.b, sol.x,
                           polish_steps=polish_steps,
@@ -684,147 +658,122 @@ class DistKL:
             ineq_res=cert.ineq_res,
         )
 
-    def solve_certified_batch(self, u, r=None,
-                              pars: SolverParams | None = None,
-                              steps: int = 16,
-                              polish_steps: int = 2,
-                              fused_cert: bool | None = None) -> Solution:
-        """Batched certified solve: per-instance bounds ``u`` (B, k) (and
-        optionally ``r`` (B, mE)) against this problem's SHARED rows.
+    def fleet_route(self, interpret: bool = False) -> str:
+        """The route ``solve_batch`` / ``solve_certified_batch`` take for
+        this problem's shape on this device (``backend.kl_dual_route``)."""
+        return backend.kl_dual_route(self.n, self.H.shape[0],
+                                     self.A.shape[0], interpret=interpret)
 
-        The production shape of ``solve_certified``.  On TPU (and when the
-        dual dim fits the kernel) the WHOLE certified solve — f32
-        projected-Newton, warm double-single polish, and the measured
-        gap/residual certificate — runs inside ONE Pallas kernel
-        (ops/pallas_kl_dual.py::kl_dual_fused_cert, float32x2 epilogue):
-        measured v5e ~10 ms per 10k x n=100 at gap ~5e-14 (table of
-        record: docs/SCALING.md), vs ~32 ms for
-        the round-3 kernel + XLA-emulated-f64 finishing pass this replaces
-        (that path remains as ``fused_cert=False`` and as the off-TPU /
-        dim > 16 fallback).  Returns a batched Solution with MEASURED f64
-        certificate leaves; requires ``jax_enable_x64``.
+    def _batch_rhs(self, u, r):
+        B = u.shape[0]
+        m_eq = self.A.shape[0]
+        dtype = self.H.dtype
+        u = jnp.asarray(u, dtype)
+        if m_eq == 0:
+            return u, jnp.zeros((B, 0), dtype)
+        rb = (jnp.broadcast_to(self.r[None], (B, m_eq))
+              if r is None else jnp.asarray(r, dtype))
+        return u, rb
 
-        ``fused_cert=None`` (auto) uses the in-kernel certificate exactly
-        where it is the measured winner: on TPU with dual dim <= 16.
+    def solve_batch(self, u, r=None, pars: SolverParams | None = None,
+                    steps: int = 16, interpret: bool = False) -> Solution:
+        """Batched f32-floor solve: per-instance bounds ``u`` (B, k) (and
+        optionally ``r`` (B, mE)) against this problem's SHARED rows, in
+        the problem's own dtype, on the route ``fleet_route()`` reports —
+        the Triton dual kernel (ops/pallas_kl_dual.py) on the GPU, the
+        same kernel in the Pallas interpreter when ``interpret=True``, or
+        the XLA dual_fast route under vmap (dual dim or row width beyond
+        ``backend.TRITON_MAX_DIM`` / ``TRITON_MAX_N``, or a device with no
+        compiled kernel route).  ONE call over the whole batch; the gap
+        leaf is the measured certificate f(x) - g(z).
         """
         pars = pars or SolverParams()
-        from ..ops.pallas_kl_dual import kl_dual_fused, kl_dual_fused_cert
-
         k = self.H.shape[0]
         m_eq = self.A.shape[0]
+        u, rb = self._batch_rhs(u, r)
         B = u.shape[0]
         dtype = self.H.dtype
-        on_tpu = jax.devices()[0].platform == "tpu"
-        Hb = jnp.broadcast_to(self.H[None], (B, k, self.n))
-        u = jnp.asarray(u, dtype)
-        if m_eq > 0:
-            Ab = jnp.broadcast_to(self.A[None], (B, m_eq, self.n))
-            rb = (jnp.broadcast_to(self.r[None], (B, m_eq))
-                  if r is None else jnp.asarray(r, dtype))
-        else:
-            Ab = rb = None
-        kernel_fits = k + m_eq >= 1 and k + 1 + m_eq <= _FUSED_MAX_DIM
-        if fused_cert is None:
-            fused_cert = on_tpu and kernel_fits
-        if fused_cert:
-            if not kernel_fits:
-                raise ValueError(
-                    f"fused_cert needs 1 <= k + m_eq and k + 1 + m_eq <= "
-                    f"{_FUSED_MAX_DIM}, got k={k}, m_eq={m_eq}")
-            if dtype != jnp.float32:
-                # the kernel would silently cast H/u/A/r to f32 and the
-                # "measured" certificate would certify a ROUNDED problem
-                # (ADVICE round 4); the auto path never gets here
-                raise ValueError(
-                    "fused_cert=True requires f32 problem data (the kernel "
-                    f"casts to f32; got {dtype}) — use fused_cert=False "
-                    "for the XLA f64 finishing pass on f64 models")
-            if jnp.zeros((), jnp.float64).dtype != jnp.float64:
-                raise RuntimeError(
-                    "solve_certified_batch needs jax_enable_x64 (the hi/lo "
-                    "certificate leaves combine exactly in f64; without x64 "
-                    "the cast silently stays f32)")
-            lp = (None if self.prior is None
-                  else jnp.log(self.prior.astype(jnp.float64)))
-            bt = (256 if self.n <= 128 else
-                  (64 if self.n <= 1024 else 8)) if on_tpu else 8
-            # (beyond dual dim 5 the kernel wrapper halves bt itself — the
-            # ds epilogue's VMEM footprint grows with dim)
-            xh, xl, zh, zl, gh, gl, ineq32, eq32 = kl_dual_fused_cert(
-                Hb, u, Ab, rb, log_prior=lp, n_steps=steps,
-                polish_steps=polish_steps, z0=float(pars.dual_start),
-                bt=bt, interpret=not on_tpu)
-            f64 = jnp.float64
-            x = xh.astype(f64) + xl.astype(f64)       # exact hi+lo combine
-            z = zh.astype(f64) + zl.astype(f64)
-            gap = gh.astype(f64) + gl.astype(f64)
-            ineq = ineq32.astype(f64)
-            eq = eq32.astype(f64)
-            # health = gap AND measured residuals: an INFEASIBLE instance
-            # whose finite-step dual has not diverged far can land at a
-            # small measured gap (g bounds an infeasible problem's +inf
-            # optimum, so f - g says nothing about feasibility) while x
-            # violates its rows by O(margin) — found by the round-5
-            # 2000-instance mixed-fleet bench, where 1 of 200 infeasible
-            # instances slipped a gap-only flag
-            stalled = jnp.logical_or(
-                jnp.logical_not(jnp.all(jnp.isfinite(x), axis=1)),
-                jnp.logical_not(jnp.logical_and(
-                    jnp.abs(gap) <= pars.tol,
-                    jnp.logical_and(ineq <= pars.tol_feas,
-                                    eq <= pars.tol_feas))))   # NaN-safe
-            nan = jnp.full((B,), jnp.nan, f64)
-            return Solution(
-                x=x, lam=z[:, :k], nu=z[:, k:], newton_decrement=nan,
-                duality_gap=gap, eq_gap=eq,
-                norm_grad=nan, norm_dual_residual=nan,
-                iters=jnp.full((B,), steps + polish_steps),
-                maxed_out=jnp.zeros((B,), bool), stalled=stalled,
-                ineq_res=ineq,
-            )
-        if kernel_fits:
+        route = self.fleet_route(interpret)
+        if route != "xla":
+            from ..ops.pallas_kl_dual import kl_dual_fused
+
             lp = None if self.prior is None else jnp.log(self.prior)
-            # VMEM budget: keep the (bt, n) instance tiles at a few MB —
-            # bt=256 at n=10000 would be a 10 MB f32 tile alone (the
-            # Mosaic scoped-VMEM limit is ~16 MB total)
-            bt = (256 if self.n <= 128 else
-                  (64 if self.n <= 1024 else 8)) if on_tpu else 8
-            xs, _, zs = kl_dual_fused(Hb, u, Ab, rb, log_prior=lp,
-                                      n_steps=steps,
+            Hb = jnp.broadcast_to(self.H[None], (B, k, self.n))
+            Ab = (jnp.broadcast_to(self.A[None], (B, m_eq, self.n))
+                  if m_eq > 0 else None)
+            x, gap, z = kl_dual_fused(Hb, u, Ab, rb if m_eq > 0 else None,
+                                      log_prior=lp, n_steps=steps,
                                       z0=float(pars.dual_start),
-                                      interpret=not on_tpu,
-                                      bt=bt)
+                                      interpret=route == "interpret")
         else:
-            # the XLA fallback starts COLD (no fused-kernel warm start), so
-            # it gets at least its own tuned schedule even when the caller
-            # passes the kernel-sized default
-            fb_steps = max(steps, 30)
+            # the XLA route starts COLD at the same schedule as
+            # solve_dual_newton, so it gets at least its own tuned step
+            # count even when the caller passes the kernel-sized default
+            steps = max(steps, 30)
 
             def one(ui, ri):
                 prob = DistKL(H=self.H, u=ui, A=self.A, r=ri, n=self.n,
                               prior=self.prior)
-                s = prob.solve_dual_newton(pars, steps=fb_steps)
-                return s.x, jnp.concatenate([s.lam, s.nu])
+                s = prob.solve_dual_newton(pars, steps=steps)
+                return s.x, s.duality_gap, jnp.concatenate([s.lam, s.nu])
 
-            xs, zs = jax.vmap(one)(u, rb if m_eq > 0
-                                   else jnp.zeros((B, 0), dtype))
-            steps = fb_steps   # honest work accounting in iters below
+            x, gap, z = jax.vmap(one)(u, rb)
+        eps = jnp.finfo(dtype).eps
+        ineq = jnp.maximum(jnp.max(-x, axis=1), 0.0)
+        if k > 0:
+            ineq = jnp.maximum(ineq, jnp.max(jnp.maximum(
+                jnp.einsum("in,bn->bi", self.H, x, precision="highest")
+                - u, 0.0), axis=1))
+        nan = jnp.full((B,), jnp.nan, dtype)
+        return Solution(
+            x=x, lam=z[:, :k], nu=z[:, k:], newton_decrement=nan,
+            duality_gap=gap, eq_gap=jnp.abs(jnp.sum(x, axis=1) - 1.0),
+            norm_grad=nan, norm_dual_residual=nan,
+            iters=jnp.full((B,), steps),
+            maxed_out=jnp.zeros((B,), bool),
+            stalled=jnp.logical_or(
+                jnp.logical_not(jnp.all(jnp.isfinite(x), axis=1)),
+                jnp.logical_not(jnp.logical_and(   # |.|, NaN-safe form
+                    jnp.abs(gap) <= jnp.sqrt(eps), ineq <= jnp.sqrt(eps)))),
+            ineq_res=ineq,
+        )
 
+    def solve_certified_batch(self, u, r=None,
+                              pars: SolverParams | None = None,
+                              steps: int = 16,
+                              polish_steps: int = 2,
+                              interpret: bool = False) -> Solution:
+        """Batched certified solve: ``solve_batch`` (one f32 solve over the
+        whole batch on the route ``fleet_route()`` reports), then the
+        vmapped native-f64 finish (``kl_certify`` warm-started from the
+        f32 dual).  Returns a batched Solution with MEASURED f64
+        certificate leaves; requires ``jax_enable_x64``.
+        """
+        pars = pars or SolverParams()
+        f32 = self.solve_batch(u, r, pars, steps=steps, interpret=interpret)
+        u, rb = self._batch_rhs(u, r)
+        B = u.shape[0]
+        dtype = self.H.dtype
+        xs = f32.x
+        zs = jnp.concatenate([f32.lam, f32.nu], axis=1)
         eq_A = jnp.concatenate([jnp.ones((1, self.n), dtype), self.A],
                                axis=0)
 
         def certify_one(ui, ri, xi, zi):
             bi = jnp.concatenate([jnp.ones((1,), dtype), ri])
-            cert = kl_certify(self.H, ui, eq_A, bi, xi, prior=self.prior,
+            return kl_certify(self.H, ui, eq_A, bi, xi, prior=self.prior,
                               polish_steps=polish_steps, z0=zi,
                               compare_input=False)
-            return cert
 
-        rb_ = rb if m_eq > 0 else jnp.zeros((B, 0), dtype)
-        certs = jax.vmap(certify_one)(u, rb_, xs, zs)
-        stalled = jnp.logical_or(           # gap AND residuals (see the
+        certs = jax.vmap(certify_one)(u, rb, xs, zs)
+        # health = gap AND measured residuals: an INFEASIBLE instance whose
+        # finite-step dual has not diverged far can land at a small
+        # measured gap (g bounds an infeasible problem's +inf optimum, so
+        # f - g says nothing about feasibility) while x violates its rows
+        # by O(margin)
+        stalled = jnp.logical_or(
             jnp.logical_not(jnp.all(jnp.isfinite(certs.x), axis=1)),
-            jnp.logical_not(jnp.logical_and(   # fused branch's comment)
+            jnp.logical_not(jnp.logical_and(          # NaN-safe form
                 jnp.abs(certs.gap) <= pars.tol,
                 jnp.logical_and(certs.ineq_res <= pars.tol_feas,
                                 certs.eq_res <= pars.tol_feas))))
@@ -833,7 +782,7 @@ class DistKL:
             x=certs.x, lam=certs.lam, nu=certs.nu, newton_decrement=nan,
             duality_gap=certs.gap, eq_gap=certs.eq_res,
             norm_grad=nan, norm_dual_residual=nan,
-            iters=jnp.full((B,), steps + polish_steps),
+            iters=f32.iters + polish_steps,
             maxed_out=jnp.zeros((B,), bool), stalled=stalled,
             ineq_res=certs.ineq_res,
         )
@@ -845,40 +794,37 @@ class DistKL:
         method: "dual" (barrier on the closed-form dual — the preferred
         low-dimensional route), "dual_fast" (direct projected-Newton on the
         dual — the batch workhorse), "dual_fused" (whole dual solve in one
-        Pallas kernel), "dual_fused_cert" (fused kernel + f64 finishing
-        pass certified to gap < 1e-8, needs x64), "dual_PD", "BR" (primal
-        barrier), "PD" (primal primal-dual).  Primal routes run phase-I at
-        construction unless ``feasible_point`` is given (Dist_KL.scala:307).
+        Pallas kernel where ``backend.kl_dual_route`` picks it),
+        "dual_fused_cert" (the same + f64 finishing pass certified to
+        gap < 1e-8, needs x64), "dual_PD", "BR" (primal barrier),
+        "BR_fast" (structured primal barrier), "PD" (primal primal-dual).
+        Primal routes run phase-I at construction unless ``feasible_point``
+        is given (Dist_KL.scala:307).
         """
         pars = pars or SolverParams()
-        if method == "dual_fast":
-            return self.solve_dual_newton(pars)
-        if method == "dual_fused":
-            return self.solve_dual_fused(pars)
-        if method == "dual_fused_cert":
-            return self.solve_certified(pars)
-        if method in ("dual", "dual_BR", "dual_PD"):
-            inner = "PD" if method == "dual_PD" else "BR"
-            return solve_dual(
-                self.neg_dual_objective(), self.num_ineq_dual,
-                self.dual_dim, self.primal_optimum,
-                method=inner, pars=pars,
-            )
-        if method not in ("BR", "PD", "fused", "BR_fast"):
+        if method in ("dual_fast", "dual_fused", "dual_fused_cert", "dual",
+                      "dual_BR", "dual_PD"):
+            return self._solve_dual_route(method, pars)
+        if method not in ("BR", "PD", "BR_fast"):
             raise ValueError(f"unknown method: {method!r}")
         cnts = self.inequalities
         eqs = self.equalities
         if feasible_point is None:
             x0 = jnp.full((self.n,), 1.0 / self.n, self.H.dtype)
             feasible_point = find_feasible_point(cnts, x0, pars, eqs)
-        if method in ("fused", "BR_fast"):
-            return self.solve_jittable(feasible_point, method=method,
-                                       pars=pars)
-        if method == "BR":
-            return barrier_solve(self.objective, cnts, feasible_point, pars,
-                                 eqs=eqs)
-        return primal_dual_solve(self.objective, cnts, feasible_point, pars,
-                                 eqs=eqs)
+        return self.solve_jittable(feasible_point, method=method, pars=pars)
+
+    def _solve_dual_route(self, method: str, pars: SolverParams) -> Solution:
+        if method == "dual_fast":
+            return self.solve_dual_newton(pars)
+        if method == "dual_fused":
+            return self.solve_dual_fused(pars)
+        if method == "dual_fused_cert":
+            return self.solve_certified(pars)
+        inner = "PD" if method == "dual_PD" else "BR"
+        return solve_dual(self.neg_dual_objective(), self.num_ineq_dual,
+                          self.dual_dim, self.primal_optimum,
+                          method=inner, pars=pars)
 
     def solve_jittable(self, feasible_point: jax.Array,
                        method: str = "BR",
@@ -893,80 +839,6 @@ class DistKL:
             return primal_dual_solve(self.objective, self.inequalities,
                                      feasible_point, pars,
                                      eqs=self.equalities)
-        if method == "dual_fast":
-            return self.solve_dual_newton(pars)
-        if method == "dual_fused":
-            return self.solve_dual_fused(pars)
-        if method == "dual_fused_cert":
-            return self.solve_certified(pars)
-        if method in ("dual", "dual_BR", "dual_PD"):
-            inner = "PD" if method == "dual_PD" else "BR"
-            return solve_dual(self.neg_dual_objective(), self.num_ineq_dual,
-                              self.dual_dim, self.primal_optimum,
-                              method=inner, pars=pars)
-        if method == "fused":
-            # whole solve in one Pallas kernel (ops/pallas_kl.py).  The
-            # kernel's closed-form algebra covers 1 <= k <= 2 scenario rows,
-            # the sum-to-one equality and the UNIFORM prior only; any other
-            # valid DistKL shape silently falls back to the structured XLA
-            # path (BR_fast), so 'fused' never raises on a well-formed
-            # problem.
-            k = self.H.shape[0]
-            if (self.A.shape[0] != 0 or not (1 <= k <= 2)
-                    or self.prior is not None):
-                method = "BR_fast"
-            else:
-                from ..ops.pallas_kl import (fused_final_t, fused_n_outer,
-                                             kl_barrier_fused)
-
-                dtype = self.H.dtype
-                # the fused kernel runs a FIXED branch-free schedule;
-                # pars.max_iter (default 1000) is the per-inner-solve cap of
-                # the iterative solvers, not a sensible step count here —
-                # cap it at the kernel's tuned default
-                n_inner = min(int(pars.max_iter), 8)
-                on_tpu = jax.devices()[0].platform == "tpu"
-                x = kl_barrier_fused(
-                    self.H[None], self.u[None],
-                    jnp.ones((1, 1, self.n), dtype), jnp.ones((1, 1), dtype),
-                    feasible_point[None],
-                    mu=float(pars.mu), tol=float(pars.tol), n_inner=n_inner,
-                    interpret=not on_tpu,
-                )[0]
-                m = k + self.n
-                n_outer = fused_n_outer(m, mu=float(pars.mu),
-                                        tol=float(pars.tol))
-                t_final = fused_final_t(m, mu=float(pars.mu),
-                                        tol=float(pars.tol), n_outer=n_outer)
-                # MEASURED duality-gap certificate at the returned iterate
-                # (not the central-path constant m/t — see kl_dual_gap)
-                A_full = jnp.ones((1, self.n), dtype)
-                b_full = jnp.ones((1,), dtype)
-                gap, z = kl_dual_gap(self.H, self.u, A_full, b_full, x,
-                                     prior=self.prior)
-                lam = jnp.concatenate([z[:k], 1.0 / (t_final * x)])
-                nan = jnp.asarray(jnp.nan, dtype)
-                eps = jnp.finfo(dtype).eps
-                # per-instance health from the MEASURED gap + finiteness
-                # (the fixed branch-free schedule has no stall signal of
-                # its own).  |gap| AND the violation test, like the dual
-                # routes: an INFEASIBLE iterate the kernel could not move
-                # (NaN barrier -> x0 returned) has f(x0) < p*, i.e. a
-                # NEGATIVE measured gap that a one-sided test calls healthy
-                ineq = self._ineq_res(x)
-                stalled = jnp.logical_or(
-                    jnp.logical_not(jnp.all(jnp.isfinite(x))),
-                    jnp.logical_not(jnp.logical_and(
-                        jnp.abs(gap) <= jnp.sqrt(eps),
-                        ineq <= jnp.sqrt(eps))))
-                return Solution(
-                    x=x, lam=lam, nu=z[k:], newton_decrement=nan,
-                    duality_gap=gap, eq_gap=jnp.abs(jnp.sum(x) - 1.0),
-                    norm_grad=nan, norm_dual_residual=nan,
-                    iters=jnp.asarray(n_outer * n_inner),
-                    maxed_out=jnp.asarray(False), stalled=stalled,
-                    ineq_res=ineq,
-                )
         if method == "BR_fast":
             # structure-exploiting primal barrier: the KL barrier Hessian is
             # diag + rank-mI, so Newton steps cost O(n (mI+mE)^2) instead of
@@ -978,6 +850,9 @@ class DistKL:
                 self.objective, self.H, self.u, eqs.A, eqs.b,
                 feasible_point, pars,
             )
+        if method in ("dual_fast", "dual_fused", "dual_fused_cert", "dual",
+                      "dual_BR", "dual_PD"):
+            return self._solve_dual_route(method, pars)
         raise ValueError(f"unknown method: {method!r}")
 
     def feasibility(self, pars: SolverParams | None = None):
@@ -1040,12 +915,12 @@ class DistKL:
                                  newton_steps: int = 4,
                                  polish_steps: int = 16,
                                  eq_tol: float = 1e-4):
-        """FLEET phase-I screen at TPU speed: entropy-smoothed GAME dual.
+        """Fast FLEET phase-I screen: entropy-smoothed GAME dual.
 
         The generic phase-I (``feasibility_batch`` /
         ``feasibility_analysis``, the reference's construction-time gate —
         Dist_KL.scala:307, ConstraintSet.scala:355-477) couples every vmap
-        lane through one while_loop and measures ~120 inst/s on TPU.  This
+        lane through one while_loop, so every lane waits for the slowest.  This
         screen is a RE-DESIGN of the same decision for the KL family's
         geometry: by LP duality on the simplex,
 
@@ -1134,8 +1009,7 @@ def kl_feasibility_screen(H, u, *, t0: float = 4.0, mu_t: float = 4.0,
     * LOWER bound: damped-Newton ascent of the x-smoothed dual on softmax
       logits theta (any iterate maps to a valid w in the simplex, so every
       stage's bound is sound); the tiny Newton system goes through the
-      closed-form/unrolled ``duality._small_solve`` (batched tiny LU
-      scalarizes on TPU).
+      closed-form/unrolled ``duality._small_solve``.
     * UPPER bound: ``polish_steps`` multiplicative-weights steps on the
       w-smoothed max-violation F_t(x) = (1/t) logsumexp(t(Hx - u))
       (exponentiated gradient: x <- softmax(log x - eta H'sigma), sigma =
@@ -1148,12 +1022,11 @@ def kl_feasibility_screen(H, u, *, t0: float = 4.0, mu_t: float = 4.0,
       the feasible band.
 
     Bounds are accumulated as the running BEST across stages — they only
-    ever tighten.  polish_steps=16 default: a round-5 TPU A/B on the
-    eq-fold family measured 8 steps leaving ~10% of feasible instances
-    just outside the 1e-4 band (973/10k undecided) while 16 decided all,
-    at ~+1.5 ms per 10k-instance batch — polish steps are the cheapest
-    ops in the screen (two (k,n) matvecs each).  All contractions run at
-    precision="highest": bf16 MXU matmuls would poison the tiny Newton
+    ever tighten.  polish_steps=16 default: on the eq-fold family 8 steps
+    left ~10% of feasible instances just outside the 1e-4 band (973/10k
+    undecided) while 16 decided all — polish steps are the cheapest ops
+    in the screen (two (k,n) matvecs each).  All contractions run at
+    precision="highest": reduced-precision matmuls would poison the tiny Newton
     systems (see _NegDualObjective).
     """
     from ..duality import _small_solve

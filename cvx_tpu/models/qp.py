@@ -303,8 +303,8 @@ def qp_certify(P, a, G, h, A, b, x, lam, nu, polish_steps: int = 3,
     f64 = jnp.float64
     if jnp.zeros((), f64).dtype != jnp.float64:
         raise RuntimeError(
-            "qp_certify needs jax_enable_x64 (on TPU f64 is emulated but "
-            "accurate; without x64 the cast silently stays f32)")
+            "qp_certify needs jax_enable_x64 (without x64 the cast "
+            "silently stays f32)")
     diag_P = P.ndim == 1            # DiagQP structured family
     P64, a64 = P.astype(f64), a.astype(f64)
     G64, h64 = G.astype(f64), h.astype(f64)
@@ -331,10 +331,8 @@ def qp_certify(P, a, G, h, A, b, x, lam, nu, polish_steps: int = 3,
         LP_, _ = regularized_cholesky(P64, delta=1e-13)
 
         def P_solve(v):
-            # one iterative-refinement pass: under TPU's EMULATED f64 the
-            # triangular solves carry ~1e-12 relative error amplified by
-            # cond(P), which floored the measured QP-fleet gap at ~4e-8
-            # for n >= 512 (true f64 on CPU: 2.6e-11 for the same data) —
+            # one iterative-refinement pass: the triangular solves' error
+            # is amplified by cond(P) and lands in the measured gap —
             # refinement against the measured residual recovers it
             y = chol_solve_factored(LP_, v)
             r = v - P64 @ y
@@ -375,7 +373,7 @@ def qp_certify(P, a, G, h, A, b, x, lam, nu, polish_steps: int = 3,
         Mf = Mf + 1e-13 * (1.0 + jnp.abs(jnp.diag(Mf))) * jnp.eye(dim)
         Lm, _ = regularized_cholesky(Mf, delta=1e-14)
         z = D * chol_solve_factored(Lm, D * rhs)
-        # emulated-f64 refinement (see P_solve): the Schur solve's error
+        # refinement (see P_solve): the Schur solve's error
         # lands FIRST-ORDER in the measured gap through the clip of
         # near-zero active multipliers
         r = D * rhs - Mf @ z

@@ -1,4 +1,4 @@
-"""Dense numerics core (L1/L2 of SURVEY.md): the TPU-native replacement for
+"""Dense numerics core (L1/L2 of SURVEY.md): the JAX replacement for
 the reference's Breeze/LAPACK layer (cvx/MatrixUtils.scala,
 cvx/KKTSystem.scala, cvx/SymmetricLinearSystem.scala)."""
 
@@ -10,7 +10,6 @@ from .equilibrate import (check_symmetric, condition_number,
                           hs_norm, ruiz_equilibrate)
 from .kkt import kkt_solve, lin_solve, sym_solve
 from .nullspace import SolutionSpace, solution_space
-from .pallas_chol import cholesky_batched, cholesky_batched_pallas
 from .reduction import (UnsolvableSystemError, free_coordinates,
                         pad_solution, reduce_kkt)
 from .scalar import bisect, newton_1d
@@ -24,7 +23,7 @@ __all__ = [
     "ruiz_equilibrate", "check_symmetric", "condition_number",
     "hs_norm", "kkt_solve", "lin_solve", "svd_solve", "sym_solve",
     "SolutionSpace",
-    "solution_space", "cholesky_batched", "cholesky_batched_pallas",
+    "solution_space",
     "UnsolvableSystemError", "free_coordinates", "pad_solution",
     "reduce_kkt", "bisect", "newton_1d", "decaying_spectrum", "nasty_rhs", "random_orthogonal",
     "random_spd", "sign_combination_matrix", "sign_combination_matrix_padded",

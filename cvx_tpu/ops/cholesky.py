@@ -1,6 +1,6 @@
 """Regularized Cholesky factorization and positive-definite solves.
 
-TPU-native re-design of the reference's dense solve core
+Re-design of the reference's dense solve core
 (cvx/MatrixUtils.scala:452-516: ``regularizedCholesky`` and
 ``choleskySolve``).  The reference's exception ladder (factor, catch, retry on
 Q + delta*I, residual check, throw) cannot exist under jit/vmap; instead we:
@@ -34,7 +34,7 @@ def tri_solve(
 
     Replaces the reference's LAPACK ``dtrtrs`` boundary
     (cvx/MatrixUtils.scala:362-376) with the XLA triangular-solve primitive
-    (MXU-tiled blocked substitution on TPU).  ``b`` may be a vector or matrix.
+    (blocked substitution).  ``b`` may be a vector or matrix.
     """
     vec = b.ndim == L.ndim - 1
     if vec:
@@ -59,7 +59,7 @@ def default_delta(dtype) -> float:
     """Regularization floor: ~100x unit roundoff of the compute dtype.
 
     The reference uses 1e-10 in float64 (MatrixUtils.scala:452-461); we scale
-    the idea with precision so the float32 TPU fast path stays stable.
+    the idea with precision so the float32 fast path stays stable.
     """
     return 1e-10 if jnp.finfo(dtype).bits >= 64 else 3e-6
 

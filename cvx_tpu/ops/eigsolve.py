@@ -1,6 +1,6 @@
 """Spectral (eigendecomposition) solves with regularization sweep.
 
-TPU-native re-design of the reference's last-resort solvers
+Re-design of the reference's last-resort solvers
 (cvx/MatrixUtils.scala:603-751: ``diagonalizationSolve``, ``svdSolve``,
 ``symSolve``).  The reference sweeps Tikhonov parameters
 delta = 1e-14 * 10^k, k < 18, sequentially, keeping the best residual, and

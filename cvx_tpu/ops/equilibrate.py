@@ -1,6 +1,6 @@
 """Ruiz equilibration of symmetric matrices.
 
-TPU-native re-design of the reference's preconditioner
+Re-design of the reference's preconditioner
 (cvx/MatrixUtils.scala:240-268 ``ruizEquilibrate`` and :278-307
 ``ruizEquilibrate0``): iteratively rescale H -> Q = D H D with a diagonal D so
 that every row of Q has (approximately) unit l2 norm.  This bounds the spread
@@ -34,7 +34,7 @@ def ruiz_equilibrate(
     ``x = d * u``.
 
     ``sweeps=k`` runs exactly ``k`` fixed rounds via ``fori_loop`` (no
-    convergence test) — the TPU hot-path mode: a data-dependent
+    convergence test) — the hot-path mode: a data-dependent
     ``while_loop`` serializes against its condition every round and, under
     ``vmap``, couples all lanes to the slowest instance; the reference
     itself uses few-sweep Ruiz in anger (MatrixUtils.scala:240-268

@@ -1,6 +1,6 @@
 """KKT system solves:  H x + A^T w = -q,   A x = b.
 
-TPU-native re-design of cvx/KKTSystem.scala.  The reference's solution is an
+Re-design of cvx/KKTSystem.scala.  The reference's solution is an
 exception ladder (KKTSystem.scala:43-66):
 
   1. ``solvePD``: Ruiz-equilibrate H, Cholesky, block elimination with the
@@ -14,7 +14,7 @@ Under jit/vmap exceptions don't exist, so this module provides:
 
   * ``kkt_solve(..., method="aug")``  — the DEFAULT and the batched hot path:
     always apply the H + A^T A transform + shifted Cholesky + iterative
-    refinement on the original system.  One code path, no branches, MXU-dense.
+    refinement on the original system.  One code path, no branches, matmul-dense.
     Handles singular H (LPs, phase-I objectives) by construction.
   * ``kkt_solve(..., method="chol")`` — stage 1 only (fastest when H is known
     PD, e.g. KL barrier Hessians).

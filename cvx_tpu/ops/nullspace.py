@@ -5,7 +5,7 @@ cvx/MatrixUtils.scala:536-550 (``solveUnderdetermined``): for A (p x n) of
 full row rank p < n, every solution of ``A x = b`` is ``x = z0 + F u`` where
 ``z0`` is the minimum-norm solution and F's columns are an orthonormal basis
 of ker(A).  Built from a complete QR factorization of A^T (XLA Householder QR,
-MXU-blocked on TPU).
+blocked matmuls).
 """
 
 from __future__ import annotations

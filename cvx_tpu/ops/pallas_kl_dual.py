@@ -1,43 +1,33 @@
-"""Pallas-fused KL DUAL solve: the whole projected-Newton dual in one kernel.
+"""The KL dual's whole projected-Newton solve in one Pallas kernel,
+compiled for the GPU through Triton.
 
-The XLA dual_fast route (models/dist_kl.py::solve_dual_newton) runs ~40
-small kernels per Newton step — at 10k instances the batch solve is ~90%
-launch overhead (measured 25 ms where the arithmetic is ~3 ms).  This
-kernel executes the ENTIRE fixed-schedule active-set projected-Newton dual
-solve inside one ``pallas_call``: each grid program holds a (bt, n) tile of
-instances in VMEM and iterates
+Each grid program takes a tile of ``bt`` instances, each a padded
+(npad,) row per constraint, and runs the fixed-schedule active-set
+projected-Newton solve of the closed-form dual to its end without
+leaving the kernel:
 
     y      = p exp(-(B'z) - 1)   (uniform p: 1/(n e))  (bt, n)
     grad   = w - B y                                   dim x (bt, 1)
     hess   = B diag(y) B'  (unrolled scalar Cholesky)  dim(dim+1)/2 x (bt,1)
     dz     = -Hf^-1 gf       (bound-active coords frozen)
     line search over halvings of the fraction-to-boundary step (one exp
-    + cheap sqrts), value acceptance with a guarded exact quadratic-model
-    fallback below the value-resolution floor
+    + cheap squarings), value acceptance with a guarded exact
+    quadratic-model fallback below the value-resolution floor
 
 then recovers x = y / sum(y) and the measured in-kernel gap f(x) - g(z).
-
-MEASURED (TPU v5e, 10k instances, n=100, f32, best-of-3 chained timing
-with completion forced via the small gap leaf, table of record
-docs/SCALING.md): **6.2 ms** per batch solve (1.61M instances/s, 161x the
-north star) at certificate gap max ~3.8e-6 — vs the XLA dual_fast route
-(launch-bound) and the fused primal barrier kernel (~10x slower;
-compute-bound on barrier stages).  The CERTIFIED variant
-(``kl_dual_fused_cert``: + double-single polish and in-kernel measured
-certificate) does 10k in 9.95 ms at gap ~5e-14.
+Under XLA the same solve (``DistKL.solve_dual_newton`` under vmap) is
+~40 small operations per Newton step; here it is one launch, and the
+working set of a program stays in registers.
 
 Shapes: B = [H; 1'; A] with k inequality rows, the sum-to-one equality and
 mE extra equality rows; dual dim = k + 1 + mE <= 16 (the closed-form
 2x2/3x3 adjugate handles dim <= 3; an unrolled scalar Cholesky handles
-4-16 — straight-line code in scalar registers; beyond 8 the batch tile is
-quartered to hold the dim x (bt, n) row-product working set in VMEM).
-Round 5 widened the envelope from 8 to 16 — the reference's dual is
-dimension-generic (Dist_KL.scala:59-65,114-165) and dim 9+ previously fell
-off onto the launch-bound XLA route unmeasured.
-Mosaic notes (same as ops/pallas_kl.py): all quantities are (bt, n) rows or
-(bt, 1) scalars — tiny-dimension tensors ((bt, dim, dim) Newton systems)
-would be scalarized ~1000x, so the small-system algebra is unrolled into
-scalar registers.
+4-16 — straight-line code on (bt, 1) values).  Triton needs power-of-two
+blocks, so the wrapper pads the row width n, the stacked row axis
+k + mE and the dual-iterate output to powers of two with inert values
+(zero rows, u = 1 on padded inequality slots), and interpret mode uses
+the very same blocks — the CPU tests run the GPU's padding.  Every
+program is independent of every other, so the grid runs in parallel.
 
 Reference parity: Dist_KL.scala:59-65 (the dual is the preferred route),
 :114-171 (closed forms, dim-generic); the active-set Newton replaces the
@@ -46,36 +36,19 @@ reference's barrier-on-the-dual with a direct bound-constrained solve.
 
 from __future__ import annotations
 
-import contextlib
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-from ._pad import round_up as _round_up
+from .. import backend
+from ..backend import FUSED_MAX_DIM
 
-# widest dual dimension k + 1 + mE the fused kernels unroll in scalar
-# registers; beyond this models/dist_kl.py falls back to the XLA
-# dual_fast route
-_FUSED_MAX_DIM = 16
-
-
-def _tile_for_dim(bt: int, dim: int) -> int:
-    """Batch-tile schedule by dual dimension (VMEM guard): the kernels'
-    working set grows ~linearly with dim (the yh row-product cache and the
-    ds epilogue's hi/lo products are dim x (bt, n) tiles) — bt=256 at
-    dim 6 measured 18.6-20.4 MB against the 16 MB scoped-VMEM limit on
-    v5e, and dim 16 at bt=64 measured 16.8 MB once the round-5 projected
-    candidate's extra row landed.  Halve beyond dim 5, 8 and 12."""
-    if dim > 5:
-        bt = max(8, bt // 2)
-    if dim > 8:
-        bt = max(8, bt // 2)
-    if dim > 12:
-        bt = max(8, bt // 2)
-    return bt
+KERNEL_NAME = "kl_dual_newton"
 
 
 def _solve_small(m, gf, dim, dtype):
@@ -84,10 +57,9 @@ def _solve_small(m, gf, dim, dtype):
 
     ``m`` maps (i, j), i <= j, to the (bt, 1) entries of the symmetric
     positive-definite M (frozen coordinates carry a unit diagonal).
-    dim <= 3 uses the measured-fast closed-form adjugate; dim 4-16 an
-    unrolled Cholesky (straight-line code, ~dim^3/3 scalar ops on (bt, 1)
-    registers — tiny-dim tensor ops would scalarize under Mosaic, see the
-    module docstring).
+    dim <= 3 uses the closed-form adjugate; dim 4-16 an unrolled Cholesky
+    (straight-line code, ~dim^3/3 scalar ops on (bt, 1) values, no
+    (bt, dim, dim) tensor in the kernel).
 
     ``sick`` (bt, 1) bool: the free-set Hessian lost (almost) all of a
     pivot to cancellation — e.g. EXACTLY ANTI-PARALLEL constraint rows
@@ -111,8 +83,8 @@ def _solve_small(m, gf, dim, dtype):
             -(m[(1, 1)] * gf[0] - m[(0, 1)] * gf[1]) / det,
             -(m[(0, 0)] * gf[1] - m[(0, 1)] * gf[0]) / det,
         ], sick
-    if dim > _FUSED_MAX_DIM:
-        raise ValueError(f"_solve_small: dim {dim} > {_FUSED_MAX_DIM}")
+    if dim > FUSED_MAX_DIM:
+        raise ValueError(f"_solve_small: dim {dim} > {FUSED_MAX_DIM}")
     if dim == 3:
         c00 = m[(1, 1)] * m[(2, 2)] - m[(1, 2)] * m[(1, 2)]
         c01 = m[(1, 2)] * m[(0, 2)] - m[(0, 1)] * m[(2, 2)]
@@ -163,28 +135,23 @@ def _solve_small(m, gf, dim, dtype):
     return dz, sick
 
 
-def _make_ctx(bs, wu, logp, *, k: int, m_eq: int, n_valid: int):
-    """Shared closures over one (bt, dim-1, n) instance tile: the dual's
-    row accessors, masked reductions and value/gradient forms — used by
-    BOTH the f32 solve kernel and the ds-certified kernel's epilogue."""
-    import types
-
-    dtype = bs.dtype
-    bt = bs.shape[0]
-    n = bs.shape[2]
+def _make_ctx(rows, ws_in, logp, *, k: int, m_eq: int, n_valid: int):
+    """Closures over one instance tile: ``rows`` are the k + mE (bt, n)
+    constraint rows [H; A], ``ws_in`` their (bt, 1) right-hand sides."""
+    dtype = rows[0].dtype
+    bt, n = rows[0].shape
     dim = k + 1 + m_eq
 
     # B = [H; 1'; A] row layout; w = (u, 1, r)
     def hrow(i):
         if i < k:
-            return bs[:, i, :]
+            return rows[i]
         if i == k:
             return jnp.ones((bt, 1), dtype)          # broadcasting row of 1s
-        return bs[:, i - 1, :]
+        return rows[i - 1]
 
-    ws = ([wu[:, j:j + 1] for j in range(k)]
-          + [jnp.ones((bt, 1), dtype)]
-          + [wu[:, k + j:k + j + 1] for j in range(m_eq)])
+    ws = (list(ws_in[:k]) + [jnp.ones((bt, 1), dtype)]
+          + list(ws_in[k:]))
     valid = (lax.broadcasted_iota(jnp.int32, (1, n), 1) < n_valid
              ).astype(dtype)                         # (1, n)
 
@@ -243,8 +210,8 @@ def _make_ctx(bs, wu, logp, *, k: int, m_eq: int, n_valid: int):
 
 
 def _newton_z(ctx, *, n_steps: int, z0: float, n_ls: int, eps: float):
-    """The fixed-schedule f32 active-set projected-Newton loop (the body
-    of the original fused kernel), on a ctx from ``_make_ctx``."""
+    """The fixed-schedule active-set projected-Newton loop on a ctx from
+    ``_make_ctx``; returns the final dual iterate as dim (bt, 1) values."""
     dtype, bt, dim, k = ctx.dtype, ctx.bt, ctx.dim, ctx.k
     hrow, ws, valid, rsum = ctx.hrow, ctx.ws, ctx.valid, ctx.rsum
     y_of, val_of, grad_of = ctx.y_of, ctx.val_of, ctx.grad_of
@@ -467,7 +434,7 @@ def _newton_z(ctx, *, n_steps: int, z0: float, n_ls: int, eps: float):
         # "decrease" (g_j > 0) is KKT-identified inactive: zero it
         # directly.  A wrongly purged weakly-active lam costs only
         # ~M_jj lam^2 = O(1e-12) in value and is self-healing (g_j < 0 at
-        # 0 unfreezes it next step / in the ds polish).
+        # 0 unfreezes it next step / in the f64 finishing pass).
         zinf = jnp.zeros((bt, 1), dtype)
         for j in range(dim):
             zinf = jnp.maximum(zinf, jnp.abs(z[j]))
@@ -482,17 +449,22 @@ def _newton_z(ctx, *, n_steps: int, z0: float, n_ls: int, eps: float):
 
     z0s = tuple(jnp.full((bt, 1), z0, dtype) for _ in range(dim))
     # int32 loop bounds: with jax_enable_x64 the Python ints would trace
-    # as i64 counters, which Mosaic fails to legalize on TPU
+    # as i64 counters
     return list(lax.fori_loop(jnp.int32(0), jnp.int32(n_steps), step, z0s))
 
 
+
 def _kl_dual_kernel(hs_ref, u_ref, logp_ref, x_ref, gap_ref, z_ref, *,
-                    n: int, k: int, m_eq: int, n_valid: int, n_steps: int,
+                    k: int, m_eq: int, n_valid: int, n_steps: int,
                     z0: float, n_ls: int, eps: float):
-    ctx = _make_ctx(hs_ref[...], u_ref[...], logp_ref[...],
-                    k=k, m_eq=m_eq, n_valid=n_valid)
-    dtype, valid, rsum, val_of = ctx.dtype, ctx.valid, ctx.rsum, ctx.val_of
+    km = k + m_eq
+    # one (bt, npad) load per constraint row and a (bt, 1) load per
+    # right-hand side; the padded rows beyond k + mE are never read
+    rows = [hs_ref[:, i, :] for i in range(km)]
+    ws_in = [u_ref[:, i:i + 1] for i in range(km)]
     logp = logp_ref[...]
+    ctx = _make_ctx(rows, ws_in, logp, k=k, m_eq=m_eq, n_valid=n_valid)
+    dtype, valid, rsum, val_of = ctx.dtype, ctx.valid, ctx.rsum, ctx.val_of
     z = _newton_z(ctx, n_steps=n_steps, z0=z0, n_ls=n_ls, eps=eps)
 
     y = ctx.y_of(z)
@@ -508,357 +480,28 @@ def _kl_dual_kernel(hs_ref, u_ref, logp_ref, x_ref, gap_ref, z_ref, *,
     f_primal = rsum(x * (logx - logp))
     gap_ref[...] = jnp.where(dead, jnp.asarray(jnp.inf, dtype),
                              f_primal + val_of(z, y))
-    # the dual iterate itself: the f64 finishing pass (models/dist_kl.py
-    # kl_certify) warm-starts from it with the active set already settled
-    z_ref[...] = jnp.concatenate(z, axis=1)
+    # the dual iterate itself, one column store per coordinate: the f64
+    # finishing pass (models/dist_kl.py kl_certify) warm-starts from it
+    # with the active set already settled
+    for j in range(ctx.dim):
+        z_ref[:, j:j + 1] = z[j]
 
 
-def _ds_yval(ctx, logp_ds, zd, max_e: float = 80.0):
-    """y = p exp(-(B'z) - 1) and B'z, both in double-single, masked."""
-    from . import ds as D
+def _tile(npad: int) -> tuple[int, int]:
+    """(instances per program, warps per program) for a padded row width.
 
-    k, dim = ctx.k, ctx.dim
-    btz = zd[k]                            # the ones-row term, (bt, 1) ds
-    for j in range(dim):
-        if j != k:
-            btz = D.ds_add(btz, D.ds_mul_f(zd[j], ctx.hrow(j)))
-    arg = D.ds_add(D.ds_neg(btz), logp_ds)
-    arg = D.ds_add_f(arg, -1.0)
-    yh, yl = D.ds_exp(arg, max_e=max_e)
-    return (yh * ctx.valid, yl * ctx.valid), btz
-
-
-def _ds_polish(ctx, logp_ds, z32, steps: int, eps: float):
-    """Warm projected-Newton polish in double-single arithmetic, fused
-    into the kernel epilogue — the in-VMEM equivalent of
-    models/dist_kl.py::_kl_warm_polish (same active-set algebra).
-
-    The GRADIENT is computed in ds (~1e-13 relative: cancellation in
-    w - B y is what kills plain f32); the Newton SYSTEM and step length
-    stay f32 — an inexact direction only slows convergence (rate ~f32 eps
-    per step), it cannot bias the measured certificate, and from the f32
-    kernel's ~1e-6 start one ds step lands ~1e-12.  Statically unrolled
-    (2-3 steps); each step costs ONE ds_exp pass over the (bt, n) tile.
-    """
-    from . import ds as D
-
-    k, dim, dtype, bt = ctx.k, ctx.dim, ctx.dtype, ctx.bt
-    hrow, ws, rsum = ctx.hrow, ctx.ws, ctx.rsum
-    zd = [D.ds(z32[j]) for j in range(dim)]
-    for _ in range(steps):
-        y, _ = _ds_yval(ctx, logp_ds, zd)
-        ry = D.ds_sum(y)
-        g = []
-        for j in range(dim):
-            s = ry if j == k else D.ds_sum(D.ds_mul_f(y, hrow(j)))
-            g.append(D.ds_sub(D.ds(ws[j]), s))
-        # active-set mask on the (correctly rounded) hi parts
-        frees, gf = [], []
-        for j in range(dim):
-            if j < k:
-                at_b = jnp.logical_and(zd[j][0] <= 0.0, g[j][0] > 0.0)
-                fr = jnp.where(at_b, 0.0, jnp.ones_like(g[j][0]))
-            else:
-                fr = jnp.ones_like(g[j][0])
-            frees.append(fr)
-            gf.append(g[j][0] * fr)
-        # f32 Hessian from the hi part of y (see docstring: direction
-        # accuracy does not limit the certificate)
-        yh = y[0]
-        yhh, ryh = {}, {}
-        for j in range(dim):
-            if j != k:
-                yhh[j] = yh * hrow(j)
-                ryh[j] = rsum(yhh[j])
-        ryf = rsum(yh)
-        m = {}
-        for i in range(dim):
-            for j in range(i, dim):
-                if i == k and j == k:
-                    mij = ryf
-                elif i == k:
-                    mij = ryh[j]
-                elif j == k:
-                    mij = ryh[i]
-                else:
-                    mij = rsum(yhh[i] * hrow(j))
-                mij = mij * frees[i] * frees[j]
-                if i == j:
-                    mij = mij + (1.0 - frees[i])
-                    mij = mij * (1.0 + 10.0 * eps)
-                m[(i, j)] = mij
-        dz, sick = _solve_small(m, gf, dim, dtype)
-        # bound-locked lam cannot move down (same two guards as the f32
-        # step and _kl_warm_polish)
-        for j in range(k):
-            dz[j] = jnp.where(
-                jnp.logical_and(zd[j][0] <= 0.0, dz[j] < 0.0), 0.0, dz[j])
-        t_bd = jnp.full((bt, 1), jnp.inf, dtype)
-        for j in range(k):
-            tj = jnp.where(dz[j] < 0,
-                           -zd[j][0] / jnp.where(dz[j] < 0, dz[j], -1.0),
-                           jnp.inf)
-            t_bd = jnp.minimum(t_bd, tj)
-        t = jnp.minimum(jnp.asarray(1.0, dtype), t_bd)
-        fin = jnp.ones((bt, 1), jnp.bool_)
-        dz_inf = jnp.zeros((bt, 1), dtype)
-        for j in range(dim):
-            fin = jnp.logical_and(fin, jnp.isfinite(dz[j]))
-            dz_inf = jnp.maximum(dz_inf, jnp.abs(dz[j]))
-        # WARM-START contract guard: the polish has no line search (full
-        # Newton from a warm start), so a sick free-set Hessian or an
-        # ABSURD direction (a broken/singular system emits ||dz|| ~ 1e7;
-        # legit refinement steps are ~1e-6, rough-but-sane warm starts
-        # ~O(1)) must take NO step — the certificate is then honestly
-        # measured at the f32 iterate instead of a corrupted one
-        fin = jnp.logical_and(fin, jnp.logical_and(
-            jnp.logical_not(sick), dz_inf <= 1e3))
-        z_new = []
-        for j in range(dim):
-            nj = D.ds_add(zd[j], D.ds_prod_ff(t, dz[j]))
-            if j < k:
-                # project + snap boundary landings (t is f32, so the
-                # landing residue is O(f32 eps * |z|)) to exactly 0
-                zero = jnp.logical_or(
-                    nj[0] < 0.0,
-                    nj[0] <= 8.0 * eps * jnp.abs(zd[j][0]))
-                nj = (jnp.where(zero, 0.0, nj[0]),
-                      jnp.where(zero, 0.0, nj[1]))
-            nj = (jnp.where(fin, nj[0], zd[j][0]),
-                  jnp.where(fin, nj[1], zd[j][1]))
-            z_new.append(nj)
-        zd = z_new
-    return zd
-
-
-def _kl_dual_cert_kernel(hs_ref, u_ref, logph_ref, logpl_ref,
-                         xh_ref, xl_ref, zhl_ref, stats_ref, *,
-                         n: int, k: int, m_eq: int, n_valid: int,
-                         n_steps: int, z0: float, n_ls: int, eps: float,
-                         polish_steps: int, interpret: bool):
-    """The CERTIFIED whole-solve kernel: f32 projected-Newton dual solve +
-    double-single (float32x2) warm polish + in-kernel ds certificate —
-    gap, inequality and equality residuals measured to ~1e-12 absolute
-    WITHOUT any XLA-emulated-f64 pass outside the kernel.  Outputs: the
-    refined primal as a ds pair (x_hi, x_lo), the polished dual as
-    [z_hi | z_lo] (bt, 2 dim), and stats = [gap_hi, gap_lo, ineq_res,
-    eq_res] (bt, 4).
-
-    The body traces under ``ds.inside_mosaic``: the ds library's
-    XLA-simplifier guards are dropped for the Mosaic lowering (which
-    neither needs nor implements them) but KEPT in interpret mode, where
-    the body runs as ordinary XLA ops and the simplifier would otherwise
-    destroy the error-free transformations (ds.py COMPILER HAZARD)."""
-    from . import ds as D
-
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(D.inside_mosaic(not interpret))
-        _kl_dual_cert_body(hs_ref, u_ref, logph_ref, logpl_ref, xh_ref,
-                           xl_ref, zhl_ref, stats_ref, n=n, k=k, m_eq=m_eq,
-                           n_valid=n_valid, n_steps=n_steps, z0=z0,
-                           n_ls=n_ls, eps=eps, polish_steps=polish_steps)
-
-
-def _kl_dual_cert_body(hs_ref, u_ref, logph_ref, logpl_ref,
-                       xh_ref, xl_ref, zhl_ref, stats_ref, *,
-                       n, k, m_eq, n_valid, n_steps, z0, n_ls, eps,
-                       polish_steps):
-    from . import ds as D
-
-    ctx = _make_ctx(hs_ref[...], u_ref[...], logph_ref[...],
-                    k=k, m_eq=m_eq, n_valid=n_valid)
-    dtype, bt, dim, valid = ctx.dtype, ctx.bt, ctx.dim, ctx.valid
-    z32 = _newton_z(ctx, n_steps=n_steps, z0=z0, n_ls=n_ls, eps=eps)
-    logp_ds = (logph_ref[...], logpl_ref[...])
-    zd = _ds_polish(ctx, logp_ds, z32, polish_steps, eps)
-
-    # final ds evaluation pass: ONE ds_exp serves the refined primal, both
-    # gap terms, and every residual (cf. kl_certify's shared-pass note)
-    y, btz = _ds_yval(ctx, logp_ds, zd)
-    sy = D.ds_sum(y)
-    dead = sy[0] <= 0.0            # divergent dual of an infeasible lane
-    sy_g = (jnp.where(dead, 1.0, sy[0]), jnp.where(dead, 0.0, sy[1]))
-    x = D.ds_mul(y, D.ds_recip(sy_g))                    # (bt, n) ds
-    wz = D.ds_mul_f(zd[0], ctx.ws[0])
-    for j in range(1, dim):
-        wz = D.ds_add(wz, D.ds_mul_f(zd[j], ctx.ws[j]))
-    # f(x) = sum x (log x - log p) with log x - log p = -B'z - 1 - log sy:
-    # the (n,)-log collapses to one scalar ds_log; sum x (computed, ~1 to
-    # ds rounding) multiplies the scalar term so no sum-to-one assumption
-    # enters the certificate
-    xbtz = D.ds_sum(D.ds_mul(x, btz), valid=valid)
-    sumx = D.ds_sum(x, valid=valid)
-    lsy = D.ds_log(sy_g)
-    t1 = D.ds_mul(D.ds_add_f(lsy, 1.0), sumx)
-    gap = D.ds_add(D.ds_sub(D.ds_neg(xbtz), t1), D.ds_add(wz, sy_g))
-    gap_h = jnp.where(dead, jnp.asarray(jnp.inf, dtype), gap[0])
-    gap_l = jnp.where(dead, jnp.zeros_like(gap[1]), gap[1])
-    # residuals: max(-x, Hx - u)_+ and the FULL equality system
-    viol = jnp.max(jnp.maximum(-x[0], 0.0) * valid, axis=1, keepdims=True)
-    for i in range(k):
-        ri = D.ds_sub(D.ds_sum(D.ds_mul_f(x, ctx.hrow(i)), valid=valid),
-                      D.ds(ctx.ws[i]))
-        viol = jnp.maximum(viol, jnp.maximum(ri[0], 0.0))
-    eq = jnp.abs(D.ds_add_f(sumx, -1.0)[0])
-    for j in range(k + 1, dim):
-        ej = D.ds_sub(D.ds_sum(D.ds_mul_f(x, ctx.hrow(j)), valid=valid),
-                      D.ds(ctx.ws[j]))
-        eq = jnp.maximum(eq, jnp.abs(ej[0]))
-
-    xh_ref[...] = x[0] * valid
-    xl_ref[...] = x[1] * valid
-    zhl_ref[...] = jnp.concatenate([zd[j][0] for j in range(dim)]
-                                   + [zd[j][1] for j in range(dim)], axis=1)
-    stats_ref[...] = jnp.concatenate([gap_h, gap_l, viol, eq], axis=1)
-
-
-def _next_pow2(v: int) -> int:
-    p = 1
-    while p < v:
-        p *= 2
-    return p
+    One instance per program, one warp per 256 lanes of its row (at most
+    8): a program keeps ~2 dim live rows, and a thread's share of them has
+    to stay in registers.  On an H100 (400 W limit) at n = 100, dual dim
+    3, one instance on one warp ran 0.48 ms per 10,000 instances against
+    0.61-3.1 ms for 2-16 instances on 1-4 warps (PERF.md, "Findings")."""
+    return 1, max(1, min(8, npad // 256))
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n_steps", "polish_steps", "z0", "n_ls", "bt",
+    static_argnames=("n_steps", "z0", "n_ls", "bt", "num_warps",
                      "interpret"))
-def kl_dual_fused_cert(
-    Hs: jax.Array,   # (B, k, n) scenario inequality rows, f32
-    u: jax.Array,    # (B, k)
-    A: jax.Array | None = None,   # (B, m_eq, n) extra equality rows
-    r: jax.Array | None = None,   # (B, m_eq)
-    log_prior: jax.Array | None = None,   # (n,) f64 log p, None = uniform
-    *,
-    n_steps: int = 16,
-    polish_steps: int = 2,
-    z0: float = 1e-3,
-    n_ls: int = 5,
-    bt: int = 256,
-    interpret: bool = False,
-):
-    """Certified whole-solve: f32 dual Newton + fused double-single polish
-    and certificate, all inside ONE Pallas kernel.
-
-    Defaults (n_steps=16, polish_steps=2) match the model layer's ONE
-    configuration of record (``DistKL.solve_certified_batch``) — direct
-    kernel callers get the same schedule every doc/table describes.
-
-    Returns ``(x_hi, x_lo, z_hi, z_lo, gap_hi, gap_lo, ineq_res, eq_res)``
-    — combine hi + lo in f64 OUTSIDE the kernel (``hi.astype(f64) +
-    lo.astype(f64)``, exact) for the certified leaves.  The measured gap
-    is honest to ~1e-12 absolute (ds arithmetic; validated against a host
-    f64 recompute in tests/test_round4.py) — far below the reference's
-    1e-8 contract (SolverParams.scala:41).  ``log_prior`` should carry
-    full f64 precision when given (it is split hi/lo on the host side of
-    the kernel); data rows/rhs are exact f32 problem data.
-
-    The row width is padded to the next POWER OF TWO (ds_sum's
-    contiguous-halves tree) — at n = 10000 that is 16384 lanes (~1.6x the
-    f32 kernel's 10112), the price of error-free reductions.
-    """
-    B, k, n = Hs.shape
-    if (A is None) != (r is None):
-        raise ValueError("kl_dual_fused_cert: A and r must be given "
-                         "together (extra equality rows A x = r)")
-    if A is None:
-        A = jnp.zeros((B, 0, n), Hs.dtype)
-        r = jnp.zeros((B, 0), Hs.dtype)
-    m_eq = A.shape[1]
-    dim = k + 1 + m_eq
-    if not (k + m_eq >= 1 and dim <= _FUSED_MAX_DIM):
-        raise ValueError(
-            f"kl_dual_fused_cert supports 1 <= k + m_eq and "
-            f"k + 1 + m_eq <= {_FUSED_MAX_DIM}, got k={k}, m_eq={m_eq}")
-    # VMEM guard (bt is a static arg, so this is trace-time Python).  The
-    # ds epilogue carries hi/lo pairs, so its footprint is ~2x the f32
-    # kernel's: one extra halving beyond dim 8 (measured on v5e against
-    # the 16 MB scoped limit: dim 16 at bt=64 hit 24.8 MB; dim 12 at
-    # bt=64 was 16.26 MB — over by 268 KB once the round-5 sick/trust
-    # guards' registers landed).
-    bt = _tile_for_dim(bt, dim)
-    if dim > 8:
-        bt = max(8, bt // 2)
-    # hi/lo split of the log prior BEFORE the x32 trace: the lo row is the
-    # f64 remainder and is the only place full precision enters (rows/rhs
-    # are exact f32 data; the uniform -log n is split in host floats)
-    import numpy as _np
-    if log_prior is None:
-        lp = -_np.log(_np.float64(n))
-        lp_hi = jnp.full((n,), float(_np.float32(lp)), jnp.float32)
-        lp_lo = jnp.full((n,), float(lp - _np.float64(_np.float32(lp))),
-                         jnp.float32)
-    else:
-        lp_hi = log_prior.astype(jnp.float32)
-        lp_lo = (log_prior - lp_hi.astype(log_prior.dtype)).astype(
-            jnp.float32)
-    if Hs.dtype == jnp.float32:
-        with jax.enable_x64(False):
-            return _kl_dual_cert_x32(Hs, u, A, r, lp_hi, lp_lo,
-                                     n_steps=n_steps,
-                                     polish_steps=polish_steps, z0=z0,
-                                     n_ls=n_ls, bt=bt, interpret=interpret)
-    return _kl_dual_cert_x32(Hs, u, A, r, lp_hi, lp_lo, n_steps=n_steps,
-                             polish_steps=polish_steps, z0=z0, n_ls=n_ls,
-                             bt=bt, interpret=interpret)
-
-
-def _kl_dual_cert_x32(Hs, u, A, r, lp_hi, lp_lo, *, n_steps, polish_steps,
-                      z0, n_ls, bt, interpret):
-    B, k, n = Hs.shape
-    m_eq = A.shape[1]
-    dtype = jnp.float32
-    Hs = Hs.astype(dtype)
-    u = u.astype(dtype)
-    A = A.astype(dtype)
-    r = r.astype(dtype)
-    lane = 128 if not interpret else 8
-    npad = _next_pow2(_round_up(n, lane))
-    bpad = _round_up(B, bt)
-
-    rows = jnp.concatenate([Hs, A], axis=1)
-    rhs_pad = jnp.concatenate([jnp.ones((bpad, k), dtype),
-                               jnp.zeros((bpad, m_eq), dtype)], axis=1)
-    rows_p = jnp.zeros((bpad, k + m_eq, npad), dtype).at[:B, :, :n].set(rows)
-    rhs_p = rhs_pad.at[:B, :k].set(u)
-    if m_eq > 0:
-        rhs_p = rhs_p.at[:B, k:].set(r)
-    lph = jnp.zeros((1, npad), dtype).at[0, :n].set(lp_hi)
-    lpl = jnp.zeros((1, npad), dtype).at[0, :n].set(lp_lo)
-
-    grid = (bpad // bt,)
-    dim = k + 1 + m_eq
-    kern = functools.partial(
-        _kl_dual_cert_kernel, n=npad, k=k, m_eq=m_eq, n_valid=n,
-        n_steps=n_steps, z0=z0, n_ls=n_ls,
-        eps=float(jnp.finfo(dtype).eps), polish_steps=polish_steps,
-        interpret=interpret)
-    xh, xl, zhl, stats = pl.pallas_call(
-        kern,
-        out_shape=(jax.ShapeDtypeStruct((bpad, npad), dtype),
-                   jax.ShapeDtypeStruct((bpad, npad), dtype),
-                   jax.ShapeDtypeStruct((bpad, 2 * dim), dtype),
-                   jax.ShapeDtypeStruct((bpad, 4), dtype)),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bt, k + m_eq, npad), lambda i: (i, 0, 0)),
-            pl.BlockSpec((bt, k + m_eq), lambda i: (i, 0)),
-            pl.BlockSpec((1, npad), lambda i: (0, 0)),
-            pl.BlockSpec((1, npad), lambda i: (0, 0)),
-        ],
-        out_specs=(pl.BlockSpec((bt, npad), lambda i: (i, 0)),
-                   pl.BlockSpec((bt, npad), lambda i: (i, 0)),
-                   pl.BlockSpec((bt, 2 * dim), lambda i: (i, 0)),
-                   pl.BlockSpec((bt, 4), lambda i: (i, 0))),
-        interpret=interpret,
-    )(rows_p, rhs_p, lph, lpl)
-    return (xh[:B, :n], xl[:B, :n], zhl[:B, :dim], zhl[:B, dim:],
-            stats[:B, 0], stats[:B, 1], stats[:B, 2], stats[:B, 3])
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_steps", "z0", "n_ls", "bt", "interpret"))
 def kl_dual_fused(
     Hs: jax.Array,   # (B, k, n) scenario inequality rows
     u: jax.Array,    # (B, k)
@@ -869,7 +512,8 @@ def kl_dual_fused(
     n_steps: int = 16,
     z0: float = 1e-3,
     n_ls: int = 5,
-    bt: int = 256,
+    bt: int | None = None,
+    num_warps: int | None = None,
     interpret: bool = False,
 ):
     """Solve a batch of KL duals entirely inside one Pallas kernel.
@@ -889,7 +533,12 @@ def kl_dual_fused(
     ``log_prior`` generalizes the objective to d_KL(x, p) for a SHARED
     (n,) prior p (beyond the reference, whose Dist_KL fixes p uniform —
     Dist_KL.scala:218): the dual closed form only changes through
-    R = p/e, i.e. one extra broadcast row in VMEM.
+    R = p/e, i.e. one extra broadcast row.
+
+    The kernel is compiled through Triton; ``interpret=True`` runs the
+    same blocks in the Pallas interpreter, and only then does it run off
+    the GPU (``backend.pallas_mode`` raises otherwise).  ``bt`` and
+    ``num_warps`` default to ``_tile``'s choice.
     """
     B, k, n = Hs.shape
     if (A is None) != (r is None):
@@ -901,69 +550,61 @@ def kl_dual_fused(
     if log_prior is None:
         log_prior = jnp.full((n,), -jnp.log(float(n)), Hs.dtype)
     m_eq = A.shape[1]
-    dim = k + 1 + m_eq
-    if not (k + m_eq >= 1 and dim <= _FUSED_MAX_DIM):
+    km = k + m_eq
+    dim = km + 1
+    if not (km >= 1 and dim <= FUSED_MAX_DIM):
         raise ValueError(
             f"kl_dual_fused supports 1 <= k + m_eq and k + 1 + m_eq <= "
-            f"{_FUSED_MAX_DIM}, got k={k}, m_eq={m_eq}")
-    # VMEM guard (see _tile_for_dim)
-    bt = _tile_for_dim(bt, dim)
-    # trace the f32 (TPU) path in x32: under jax_enable_x64 (the certified
-    # finishing pass enables it) weak Python ints become i64 scalars, which
-    # Mosaic fails to legalize ("failed to legalize operation
-    # 'func.return'").  f64 inputs (CPU interpret tests) keep x64 tracing —
-    # x32 mode would silently downcast their constants.
-    if Hs.dtype == jnp.float32:
-        with jax.enable_x64(False):
-            return _kl_dual_fused_x32(Hs, u, A, r, log_prior,
-                                      n_steps=n_steps, z0=z0,
-                                      n_ls=n_ls, bt=bt, interpret=interpret)
-    return _kl_dual_fused_x32(Hs, u, A, r, log_prior, n_steps=n_steps,
-                              z0=z0, n_ls=n_ls, bt=bt, interpret=interpret)
-
-
-def _kl_dual_fused_x32(Hs, u, A, r, log_prior, *, n_steps, z0, n_ls, bt,
-                       interpret):
-    B, k, n = Hs.shape
-    m_eq = A.shape[1]
+            f"{FUSED_MAX_DIM}, got k={k}, m_eq={m_eq}")
+    interpret = backend.pallas_mode(interpret) == "interpret"
     dtype = Hs.dtype
-    lane = 128 if not interpret else 8
-    npad = _round_up(n, lane)
-    bpad = _round_up(B, bt)
+    npad = pl.next_power_of_2(n)
+    kmpad = pl.next_power_of_2(km)
+    dimpad = pl.next_power_of_2(dim)
+    bt_auto, warps_auto = _tile(npad)
+    bt = bt or bt_auto
+    num_warps = num_warps or warps_auto
+    if bt != pl.next_power_of_2(bt):
+        raise ValueError(f"kl_dual_fused: bt must be a power of two, "
+                         f"got {bt}")
+    bpad = -(-B // bt) * bt
 
     # one stacked (B, k + m_eq, n) row tensor and (B, k + m_eq) rhs keep the
-    # kernel signature fixed.  Batch padding: inequality rows 0 with u = 1
-    # (inactive); equality rows 0 with r = 0 (zero gradient, inert).
+    # kernel signature fixed.  Padding: inequality rows 0 with u = 1
+    # (inactive); equality rows 0 with r = 0 (zero gradient, inert); the
+    # power-of-two row slots beyond k + m_eq are never read.
     rows = jnp.concatenate([Hs, A], axis=1)
     rhs_pad = jnp.concatenate([jnp.ones((bpad, k), dtype),
-                               jnp.zeros((bpad, m_eq), dtype)], axis=1)
-    rows_p = jnp.zeros((bpad, k + m_eq, npad), dtype).at[:B, :, :n].set(rows)
-    rhs_p = rhs_pad.at[:B, :k].set(u)
+                               jnp.zeros((bpad, kmpad - k), dtype)], axis=1)
+    rows_p = jnp.zeros((bpad, kmpad, npad), dtype).at[:B, :km, :n].set(rows)
+    rhs_p = rhs_pad.at[:B, :k].set(u.astype(dtype))
     if m_eq > 0:
-        rhs_p = rhs_p.at[:B, k:].set(r)
+        rhs_p = rhs_p.at[:B, k:km].set(r.astype(dtype))
     # shared (1, npad) log-prior row, zero on pad lanes (masked in-kernel)
     logp_p = jnp.zeros((1, npad), dtype).at[0, :n].set(
         jnp.asarray(log_prior, dtype))
 
-    grid = (bpad // bt,)
-    dim = k + 1 + m_eq
     kern = functools.partial(
-        _kl_dual_kernel, n=npad, k=k, m_eq=m_eq, n_valid=n, n_steps=n_steps,
+        _kl_dual_kernel, k=k, m_eq=m_eq, n_valid=n, n_steps=n_steps,
         z0=z0, n_ls=n_ls, eps=float(jnp.finfo(dtype).eps))
     x, gap, z = pl.pallas_call(
         kern,
         out_shape=(jax.ShapeDtypeStruct((bpad, npad), dtype),
                    jax.ShapeDtypeStruct((bpad, 1), dtype),
-                   jax.ShapeDtypeStruct((bpad, dim), dtype)),
-        grid=grid,
+                   jax.ShapeDtypeStruct((bpad, dimpad), dtype)),
+        grid=(bpad // bt,),
         in_specs=[
-            pl.BlockSpec((bt, k + m_eq, npad), lambda i: (i, 0, 0)),
-            pl.BlockSpec((bt, k + m_eq), lambda i: (i, 0)),
+            pl.BlockSpec((bt, kmpad, npad), lambda i: (i, 0, 0)),
+            pl.BlockSpec((bt, kmpad), lambda i: (i, 0)),
             pl.BlockSpec((1, npad), lambda i: (0, 0)),
         ],
         out_specs=(pl.BlockSpec((bt, npad), lambda i: (i, 0)),
                    pl.BlockSpec((bt, 1), lambda i: (i, 0)),
-                   pl.BlockSpec((bt, dim), lambda i: (i, 0))),
+                   pl.BlockSpec((bt, dimpad), lambda i: (i, 0))),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
+        name=KERNEL_NAME,
     )(rows_p, rhs_p, logp_p)
-    return x[:B, :n], gap[:B, 0], z[:B]
+    return x[:B, :n], gap[:B, 0], z[:B, :dim]

@@ -2,7 +2,7 @@
 
 The reference has no distribution at all (SURVEY.md section 2.4); this is the
 framework's communication layer, built entirely on jax.sharding + XLA
-collectives over ICI/DCN — no hand-written transport (SURVEY.md section 5.8).
+collectives (NCCL on GPUs) — no hand-written transport (SURVEY.md section 5.8).
 """
 
 from __future__ import annotations
@@ -15,14 +15,13 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> int:
-    """Initialize jax.distributed for multi-host pods.
+    """Initialize jax.distributed for multi-host clusters.
 
-    On TPU pods the arguments are discovered from the environment
-    (jax.distributed.initialize() with no args); pass them explicitly for
-    CPU/GPU clusters.  Returns the process count.  Meshes built afterwards
-    with instance_mesh()/block_mesh() span ALL hosts' devices, shard_map
-    collectives ride ICI within a slice and DCN across slices — per
-    SURVEY.md section 5.8 there is no custom transport to write.
+    Pass the coordinator address, process count and process id: nothing
+    discovers a GPU cluster from the environment.  Returns the process
+    count.  Meshes built afterwards with instance_mesh()/block_mesh() span
+    ALL hosts' devices and shard_map collectives cross hosts — per SURVEY.md
+    section 5.8 there is no custom transport to write.
     """
     import jax
 

@@ -21,7 +21,7 @@ This generalizes exactly the reference's single-block elimination
 (cvx/KKTSystem.scala:99-167, S = A H^-1 A^T) to many blocks — per
 SURVEY.md section 5.7.  Distribution: blocks are sharded over a mesh axis;
 the only communication is a ``psum`` of the (p, p) Schur contribution and the
-(p,) right-hand side over ICI, then every device back-substitutes its own
+(p,) right-hand side, then every device back-substitutes its own
 blocks locally.
 """
 
@@ -82,7 +82,7 @@ def make_sharded_schur_solver(mesh: Mesh, axis: str = "blocks") -> Callable:
 
     def local(H, C, q, rhs):
         Hinv_Ct, Hinv_q, S_loc, y_loc = _local_schur_pieces(H, C, q)
-        S = lax.psum(S_loc, axis)          # (p, p) over ICI
+        S = lax.psum(S_loc, axis)          # (p, p) over the mesh
         y = lax.psum(y_loc, axis)          # (p,)
         S = 0.5 * (S + S.T)
         Ls, _ = regularized_cholesky(S)
@@ -147,8 +147,8 @@ def separable_certify(prob: "SeparableProblem", x, lam, nu,
     f64 = jnp.float64
     if jnp.zeros((), f64).dtype != jnp.float64:
         raise RuntimeError(
-            "separable_certify needs jax_enable_x64 (on TPU f64 is "
-            "emulated but accurate; without x64 the cast stays f32)")
+            "separable_certify needs jax_enable_x64 (without x64 the "
+            "cast stays f32)")
     P = prob.P.astype(f64)
     a = prob.a.astype(f64)
     G = prob.G.astype(f64)
@@ -249,9 +249,8 @@ def separable_certify(prob: "SeparableProblem", x, lam, nu,
     gval, x_ref = g_of(lam_z, w_z)
 
     # RESIDUAL-CORRECTION pass on the coupling: the Schur pieces
-    # (M_CC, M_GC, y_C) carry ~1e-12 relative entry error under TPU's
-    # emulated f64, which cond(S) amplifies into the recovered coupling
-    # residual (measured 4e-9 at config 5 pre-correction).  Correcting
+    # (M_CC, M_GC, y_C) carry rounding error in their entries, which
+    # cond(S) amplifies into the recovered coupling residual.  Correcting
     # against the MEASURED residual r = sum C x - c with the SAME
     # approximate operator kills the first-order error: w += S^-1 r,
     # lam -= T S^-1 r (the eliminated lam(w) sensitivity), x re-recovered.

@@ -11,10 +11,10 @@ solveWithCholFactor) to a ROW-SHARDED H under ``shard_map``:
     block rows over the mesh axis; per block column k the owner's block row
     is broadcast (one psum of (bs, n)), every device factors the (bs, bs)
     diagonal block redundantly (tiny), computes its local panel piece with a
-    triangular solve, all-gathers the (n, bs) panel over ICI, and applies
+    triangular solve, all-gathers the (n, bs) panel over the mesh, and applies
     the rank-bs trailing update to its local slab.  Communication per step
     is O(n*bs); total O(n^2) — subordinate to the O(n^3/D) local GEMM work,
-    which is exactly how the MXU wants it.
+    which keeps the work in large matmuls.
   * ``sharded_chol_solve``: forward/back substitution on the sharded
     factor.  Forward: the owner of block k solves locally and broadcasts
     y_k (a (bs, nrhs) psum).  Backward: the column-panel dot products are

@@ -1,5 +1,5 @@
 """Problem modeling layer (L3 of SURVEY.md): objectives, constraints,
-equalities, domains — the TPU-native replacement for the reference's
+equalities, domains — the JAX replacement for the reference's
 closure-object protocol (cvx/ObjectiveFunction.scala, cvx/Constraint.scala,
 cvx/ConstraintSet.scala, cvx/EqualityConstraint.scala, cvx/ConvexSet.scala).
 """

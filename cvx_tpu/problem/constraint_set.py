@@ -14,7 +14,7 @@ Re-design of cvx/ConstraintSet.scala.  Holds a tuple of homogeneous blocks
         grad      = t g0    + Dg(x)^T (1/d)
         hess      = t H0    + Dg^T diag(1/d^2) Dg + sum_i hess(g_i)/d_i
 
-    as three einsum-fused expressions (MXU-dense in the Dg contraction);
+    as three einsum-fused expressions (matmul-dense in the Dg contraction);
   * phase-I lifts (simple: ConstraintSet.scala:131-168; SOI: :233-282).
 """
 

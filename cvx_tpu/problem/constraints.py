@@ -1,11 +1,11 @@
 """Inequality-constraint blocks (array-of-structs constraint modeling).
 
-TPU-native re-design of cvx/Constraint.scala, cvx/LinearConstraint.scala,
+Re-design of cvx/Constraint.scala, cvx/LinearConstraint.scala,
 cvx/QuadraticConstraint.scala and the factory zoo cvx/Constraints.scala.
 
 The reference stores ONE closure object per scalar constraint and folds over
 the list (BarrierSolver.scala:280-316) — m sequential rank-1 updates.  That
-design cannot reach the MXU.  Here constraints live in homogeneous BLOCKS:
+design cannot batch into matmuls.  Here constraints live in homogeneous BLOCKS:
 
   * ``LinearBlock``     g(x) = c + G x           <= ub   (m, n) arrays
   * ``QuadBlock``       g_i  = r_i + a_i.x + x'P_i x/2   (m, n, n) arrays

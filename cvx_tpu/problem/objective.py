@@ -1,6 +1,6 @@
 """Objective functions.
 
-TPU-native re-design of cvx/ObjectiveFunction.scala (:8-35),
+Re-design of cvx/ObjectiveFunction.scala (:8-35),
 cvx/LinearObjectiveFunction.scala, cvx/QuadraticObjectiveFunction.scala and
 the factory zoo cvx/ObjectiveFunctions.scala.  Where the reference asks users
 to hand-code valueAt/gradientAt/hessianAt closures, here:

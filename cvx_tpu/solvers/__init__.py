@@ -1,5 +1,5 @@
 """Solver layer (L4 of SURVEY.md): Newton engines, barrier and primal-dual
-interior-point methods, phase-I feasibility — the TPU-native replacement for
+interior-point methods, phase-I feasibility — the JAX replacement for
 cvx/UnconstrainedSolver.scala, cvx/EqualityConstrainedSolver.scala,
 cvx/BarrierSolver.scala, cvx/PrimalDualSolver.scala and the phase-I half of
 cvx/ConstraintSet.scala."""

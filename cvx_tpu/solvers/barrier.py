@@ -1,6 +1,6 @@
 """Log-barrier interior-point solver.
 
-TPU-native re-design of cvx/BarrierSolver.scala (:22-317): the outer
+Re-design of cvx/BarrierSolver.scala (:22-317): the outer
 continuation over the barrier parameter t (t <- mu*t, duality gap m/t) is a
 ``lax.while_loop`` whose body runs a full inner Newton solve on the barrier
 function phi(t,x) = t f(x) - sum_i log(u_i - g_i(x)).  The barrier value /
@@ -56,7 +56,7 @@ def barrier_solve(
     dtype = x0.dtype
     # dtype-aware equality tolerance: ||Ax-b|| has a floor of ~eps * scale,
     # so an absolute 1e-8 can never fire in float32 — without this, t grows
-    # until the barrier Hessian overflows (the f32 TPU fast path).
+    # until the barrier Hessian overflows (the f32 fast path).
     eps = jnp.finfo(dtype).eps
     eq_tol = jnp.maximum(jnp.asarray(pars.tol, dtype), 100.0 * eps)
     if criterion is None:

@@ -1,6 +1,6 @@
 """Damped-Newton minimization over an open convex set.
 
-TPU-native re-design of cvx/UnconstrainedSolver.scala (:22-209) and
+Re-design of cvx/UnconstrainedSolver.scala (:22-209) and
 cvx/EqualityConstrainedSolver.scala (:18-170): the inner engines of the
 barrier method.  The reference's mutable while loops become
 ``lax.while_loop``s over explicit carry pytrees; the whole solve is one
@@ -45,7 +45,7 @@ def _backtrack(value_fn, in_set, x, d, f0, q, pars, require_armijo=True):
     candidate step sizes beta^k, k = 0..ls_max_steps, are evaluated in one
     batched pass (one fused kernel; the constraint evaluations become a
     single matmul over the trial axis) and the largest acceptable t wins.
-    Identical result to sequential backtracking, far better for TPU.
+    Identical result to sequential backtracking, with no serial loop.
 
     ``require_armijo`` may be a traced bool: when False the search only
     backtracks into the set (used for pure feasibility-restoration steps of

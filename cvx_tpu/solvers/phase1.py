@@ -1,6 +1,6 @@
 """Phase-I feasibility analysis.
 
-TPU-native re-design of the reference's phase-I subsystem
+Re-design of the reference's phase-I subsystem
 (cvx/ConstraintSet.scala:123-575): find a strictly feasible point of
 ``g_i(x) <= u_i`` (optionally with ``A x = b``), or certify infeasibility.
 

@@ -1,6 +1,6 @@
 """Infeasible-start primal-dual interior-point solver.
 
-TPU-native re-design of cvx/PrimalDualSolver.scala (:18-728), which
+Re-design of cvx/PrimalDualSolver.scala (:18-728), which
 implements Boyd–Vandenberghe section 11.7.  One ``lax.while_loop`` carries
 (x, lambda, nu); each iteration:
 

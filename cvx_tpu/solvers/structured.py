@@ -15,11 +15,11 @@ identity and a (k+p)-level Schur complement:
 
 so one Newton step costs O(n (k+p)^2 + (k+p)^3) instead of O(n^3) — about
 300x fewer FLOPs at n=100, k=2, p=1, and NO (n, n) intermediates, which is
-what actually matters on TPU (HBM traffic of a 10k-instance batch drops from
+what actually matters on an accelerator (HBM traffic of a 10k-instance batch drops from
 650 MB to 4 MB per tensor).  The line search reuses the directional
 quantities (U dx, A dx), making each candidate O(n).
 
-This is the TPU answer to the reference's ``kktType = 1`` hook ("take
+This is the batched answer to the reference's ``kktType = 1`` hook ("take
 advantage of special structure in the matrix H", KKTSystem.scala:17-21).
 """
 

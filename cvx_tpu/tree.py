@@ -54,11 +54,10 @@ def replace(obj: _T, **changes: Any) -> _T:
 def mxu_exact(fn):
     """Trace the wrapped solver under exact-f32 matmul precision.
 
-    On TPU, f32 matmuls/einsums default to bfloat16 MXU passes
-    (eps ~ 8e-3).  That is fine for neural nets, but it poisons
-    interior-point arithmetic: Newton gradients stall around 1e-3 and the
-    MEASURED duality gap of the f32 structured path was 3.9e-3 instead of
-    ~1e-6 (bench.py certificate).  Every solver entry point is wrapped so
+    On the GPU, f32 matmuls/einsums may run in TF32 (about three decimal
+    digits).  That is fine for neural nets, but it poisons interior-point
+    arithmetic: Newton gradients stall around 1e-3 and the measured
+    duality gap of an f32 route floors near 1e-3 instead of ~1e-6.  Every solver entry point is wrapped so
     all contractions traced inside run at Precision.HIGHEST; dense
     factorizations (lax.linalg) are unaffected (natively f32).
     """

@@ -42,8 +42,10 @@ class TestKLRoutesAgree:
         x0 = jnp.asarray((w / nA) * I_A + ((1 - w) / (n - nA)) * (1 - I_A))
 
         vals = {}
-        for method in ("dual", "dual_fast", "dual_fused"):
+        for method in ("dual", "dual_fast"):
             vals[method] = _kl_value(prob.solve(method=method).x, n)
+        vals["dual_fused"] = _kl_value(
+            prob.solve_dual_fused(interpret=True).x, n)
         pars = SolverParams(tol=1e-10, mu=30.0, kkt_method="chol")
         vals["BR_fast"] = _kl_value(
             prob.solve_jittable(x0, method="BR_fast", pars=pars).x, n)

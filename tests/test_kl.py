@@ -202,20 +202,3 @@ class TestBatched:
             gap, _ = kl_dual_gap(H, u, A_full, b_full, xs[i])
             assert abs(float(gap)) < 1e-7, i
             assert abs(float(jnp.sum(xs[i][:3])) - float(pA)) < 1e-5, i
-
-
-class TestFusedRoute:
-    def test_solve_jittable_fused(self):
-        """DistKL method='fused' (whole solve in one Pallas kernel,
-        interpret mode on CPU) matches the structured path."""
-        # the library passes interpret=not on_tpu itself (call-site
-        # kwargs would override a functools.partial patch anyway)
-        n = 16
-        I_A = np.zeros(n); I_A[:3] = 1.0
-        prob = DistKL.create(n, H=jnp.asarray(-I_A[None]),
-                             u=jnp.asarray([-0.4]))
-        x0 = jnp.asarray(np.where(np.arange(n) < 3, 0.5 / 3, 0.5 / (n - 3)))
-        sol = prob.solve_jittable(x0, method="fused")
-        ref = prob.solve_jittable(x0, method="BR_fast")
-        assert float(jnp.max(jnp.abs(sol.x - ref.x))) < 1e-4
-        assert float(sol.eq_gap) < 1e-6

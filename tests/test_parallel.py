@@ -1,7 +1,7 @@
-"""M5/M6: batching, sharding, Pallas Cholesky, Schur consensus.
+"""M5/M6: batching, sharding, Schur consensus.
 
 Multi-chip logic runs on the 8-device virtual CPU mesh (conftest), per
-SURVEY.md section 4's test strategy for the TPU build.
+SURVEY.md section 4's test strategy.
 """
 
 import jax
@@ -12,30 +12,10 @@ import pytest
 from cvx_tpu import ops, parallel
 from cvx_tpu import problem as pb
 from cvx_tpu.models import DistKL
-from cvx_tpu.ops.pallas_chol import cholesky_batched_pallas
 from cvx_tpu.parallel.schur import (SeparableProblem, schur_kkt_solve,
                                     separable_barrier_solve,
                                     make_sharded_schur_solver)
 from cvx_tpu.solvers import SolverParams
-
-
-class TestPallasCholesky:
-    @pytest.mark.parametrize("n", [20, 50, 64])
-    def test_matches_xla(self, key, n):
-        B = 6
-        X = jax.vmap(lambda k: ops.random_spd(k, n, cond=1e6))(
-            jax.random.split(key, B))
-        L = cholesky_batched_pallas(X, bk=16, bt=2, interpret=True)
-        Lref = jnp.linalg.cholesky(X)
-        assert float(jnp.max(jnp.abs(L - Lref))) < 1e-10
-
-    def test_odd_batch_padding(self, key):
-        X = jax.vmap(lambda k: ops.random_spd(k, 10, cond=10.0))(
-            jax.random.split(key, 5))
-        L = cholesky_batched_pallas(X, bk=16, bt=2, interpret=True)
-        assert L.shape == (5, 10, 10)
-        recon = jnp.einsum("bij,bkj->bik", L, L)
-        assert float(jnp.max(jnp.abs(recon - X))) < 1e-10
 
 
 def _kl_batch(n, B):
@@ -167,54 +147,3 @@ class TestSchur:
         x_local = separable_barrier_solve(prob, x0).x
         x_shard = separable_barrier_solve(prob, x0, kkt_solver=solver).x
         assert jnp.allclose(x_local, x_shard, atol=1e-6)
-
-
-class TestFusedKLKernel:
-    """Pallas-fused whole-solve kernel vs the structured solver."""
-
-    def _problem(self, dt):
-        import numpy as np
-        n, B = 20, 4
-        I_A = np.zeros(n); I_A[:3] = 1.0
-        I_B = np.zeros(n); I_B[n // 2:] = 1.0
-        Hs = jnp.tile(jnp.asarray(np.stack([-I_A, I_B]), dt)[None],
-                      (B, 1, 1))
-        pAs = jnp.linspace(0.30, 0.42, B).astype(dt)
-        u = jnp.stack([-pAs, jnp.full((B,), 0.1, dt)], axis=1)
-        A = jnp.ones((B, 1, n), dt)
-        b = jnp.ones((B, 1), dt)
-        x0 = jnp.tile(jnp.asarray(
-            np.where(np.arange(n) < 3, 0.45 / 3,
-                     np.where(np.arange(n) >= n // 2, 0.008, 0.47 / 7)),
-            dt)[None], (B, 1))
-        return n, B, Hs, u, A, b, x0
-
-    @pytest.mark.parametrize("dt", [jnp.float64, jnp.float32])
-    def test_matches_structured(self, dt):
-        from cvx_tpu.ops.pallas_kl import kl_barrier_fused
-        from cvx_tpu.models import DistKL
-        n, B, Hs, u, A, b, x0 = self._problem(dt)
-        xs = kl_barrier_fused(Hs, u, A, b, x0, interpret=True, bt=2)
-        assert bool(jnp.all(jnp.isfinite(xs)))
-        for i in range(B):
-            prob = DistKL.create(n, H=Hs[i], u=u[i], dtype=dt)
-            ref = prob.solve_jittable(x0[i], method="BR_fast")
-            f_fused = float(xs[i] @ jnp.log(n * xs[i]))
-            f_ref = float(ref.x @ jnp.log(n * ref.x))
-            assert abs(f_fused - f_ref) < 1e-3
-
-    def test_k1_rows(self):
-        import numpy as np
-        from cvx_tpu.ops.pallas_kl import kl_barrier_fused
-        n, B = 16, 2
-        I_A = np.zeros(n); I_A[:3] = 1.0
-        Hs = jnp.tile(jnp.asarray(-I_A[None]), (B, 1))[:, None, :]
-        u = jnp.full((B, 1), -0.4)
-        A = jnp.ones((B, 1, n))
-        b = jnp.ones((B, 1))
-        x0 = jnp.tile(jnp.asarray(
-            np.where(np.arange(n) < 3, 0.5 / 3, 0.5 / (n - 3)))[None],
-            (B, 1))
-        xs = kl_barrier_fused(Hs, u, A, b, x0, interpret=True, bt=2)
-        assert float(jnp.max(jnp.abs(xs.sum(1) - 1.0))) < 1e-8
-        assert float(jnp.min(xs[:, :3].sum(1))) >= 0.4 - 1e-6

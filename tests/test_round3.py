@@ -9,6 +9,8 @@ Pins the round-3 verdict items:
      jamming the active-set Newton), checkpoint shape/dtype validation.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,14 +28,15 @@ def _scenario(n=100, dtype=jnp.float32):
 
 
 class TestCertified1e8:
-    """Verdict item 1: the TPU path to the written 1e-8 gap contract."""
+    """Verdict item 1: the f32 + f64-finish path to the written 1e-8 gap
+    contract."""
 
     def test_single_instance_certified(self):
         H = _scenario()
         prob = DistKL.create(100, H=H, u=jnp.asarray([-0.4, 0.7],
                                                      jnp.float32),
                              dtype=jnp.float32)
-        sol = prob.solve(method="dual_fused_cert")
+        sol = prob.solve_certified(interpret=True)
         assert sol.x.dtype == jnp.float64
         gap = float(sol.duality_gap)
         assert gap <= 1e-8 and gap >= -1e-12, gap
@@ -51,8 +54,8 @@ class TestCertified1e8:
 
         def one(a, b):
             u = jnp.stack([-a, b]).astype(jnp.float32)
-            return DistKL.create(n, H=H, u=u,
-                                 dtype=jnp.float32).solve_certified()
+            return DistKL.create(n, H=H, u=u, dtype=jnp.float32
+                                 ).solve_certified(interpret=True)
 
         sols = jax.jit(jax.vmap(one))(pA, pB)
         gaps = np.asarray(sols.duality_gap)
@@ -73,7 +76,8 @@ class TestCertified1e8:
         pA = jnp.linspace(0.05, 0.5, 64)
         pB = jnp.linspace(0.45, 0.95, 64)
         u = jnp.stack([-pA, pB], axis=1).astype(jnp.float32)
-        s = jax.jit(prob.solve_certified_batch)(u)
+        s = jax.jit(functools.partial(prob.solve_certified_batch,
+                              interpret=True))(u)
         g = np.asarray(s.duality_gap)
         assert g.max() <= 1e-8 and g.min() >= -1e-12
         assert np.asarray(s.ineq_res).max() <= 1e-10
@@ -90,7 +94,8 @@ class TestCertified1e8:
         pB = jnp.linspace(0.45, 0.95, 32)
         u = jnp.stack([-pA, pB], axis=1).astype(jnp.float32)
         r = jnp.linspace(0.44, 0.50, 32)[:, None].astype(jnp.float32)
-        s = jax.jit(prob.solve_certified_batch)(u, r)
+        s = jax.jit(functools.partial(prob.solve_certified_batch,
+                              interpret=True))(u, r)
         assert np.asarray(s.duality_gap).max() <= 1e-8
         assert not np.asarray(s.stalled).any()
 
@@ -108,14 +113,15 @@ class TestCertified1e8:
         # is ~0.56 < 0.75
         u_bad = jnp.tile(jnp.asarray([[-0.4, 0.85]], jnp.float32), (4, 1))
         r_bad = jnp.full((4, 1), 0.75, jnp.float32)
-        s = jax.jit(prob.solve_certified_batch)(u_bad, r_bad)
+        s = jax.jit(functools.partial(prob.solve_certified_batch,
+                              interpret=True))(u_bad, r_bad)
         assert np.asarray(s.stalled).all()
         # the raw f32 dual routes flag it too
         prob_bad = DistKL.create(
             n, H=H, u=jnp.asarray([-0.4, 0.85], jnp.float32), A=A,
             r=jnp.asarray([0.75], jnp.float32), dtype=jnp.float32)
-        for method in ("dual_fast", "dual_fused"):
-            assert bool(prob_bad.solve(method=method).stalled), method
+        assert bool(prob_bad.solve(method="dual_fast").stalled)
+        assert bool(prob_bad.solve_dual_fused(interpret=True).stalled)
 
     def test_certify_rejects_infeasible_input(self):
         """kl_certify must not report a spuriously negative gap for an
@@ -200,7 +206,7 @@ class TestFusedKernelDim5:
             A=jnp.asarray(A, jnp.float32) if m_eq else None,
             r=jnp.asarray(r, jnp.float32) if m_eq else None,
             dtype=jnp.float32)
-        s_fused = prob.solve(method="dual_fused")
+        s_fused = prob.solve_dual_fused(interpret=True)
         s_fast = prob.solve(method="dual_fast")
         gap_fused = float(s_fused.duality_gap)
         gap_fast = float(s_fast.duality_gap)
@@ -232,7 +238,7 @@ class TestFusedKernelDim5:
             A=jnp.asarray(A, jnp.float32) if m_eq else None,
             r=jnp.asarray(r, jnp.float32) if m_eq else None,
             dtype=jnp.float32)
-        s_fused = prob.solve(method="dual_fused")
+        s_fused = prob.solve_dual_fused(interpret=True)
         s_fast = prob.solve(method="dual_fast")
         assert not bool(s_fused.stalled), (k, m_eq)
         # the binding rows carry REAL multipliers
@@ -252,7 +258,7 @@ class TestFusedKernelDim5:
         prob = DistKL.create(
             n, H=H, u=jnp.asarray([-0.3, 0.7, 0.4], jnp.float32),
             A=A, r=jnp.asarray([0.52], jnp.float32), dtype=jnp.float32)
-        sol = prob.solve(method="dual_fused_cert")
+        sol = prob.solve_certified(interpret=True)
         assert float(sol.duality_gap) <= 1e-8
         assert float(sol.ineq_res) <= 1e-10
         assert float(sol.eq_gap) <= 1e-10
@@ -803,8 +809,7 @@ class TestSelfReviewFixes:
     def test_certified_batch_dim_over_8(self):
         """k = 9 inequality rows (dual dim 11): the certified route's
         dim > 5 branch reaches _small_solve above the unrolled-Cholesky
-        cutoff, which must use a TPU-f64-compatible Cholesky solve (LU
-        does not lower in f64 on that backend) and still certify 1e-8."""
+        cutoff (a Cholesky + triangular solve) and still certify 1e-8."""
         n, k, B = 24, 9, 4
         rng = np.random.default_rng(5)
         rows = np.zeros((k, n))
@@ -813,7 +818,7 @@ class TestSelfReviewFixes:
         H = jnp.asarray(rows)
         prob = DistKL.create(n, H=H, u=jnp.full((k,), 0.9))
         u = jnp.asarray(0.3 + 0.25 * rng.random((B, k)))
-        sol = prob.solve_certified_batch(u)
+        sol = prob.solve_certified_batch(u, interpret=True)
         assert bool(jnp.all(jnp.isfinite(sol.x)))
         assert float(jnp.max(jnp.abs(sol.duality_gap))) < 1e-8
         assert not bool(jnp.any(sol.stalled))
@@ -889,30 +894,6 @@ class TestDeepReviewFixes:
         H = jnp.asarray(-I_A)[None]          # P(A) >= 0.6 with |A|/n = 0.25
         return DistKL.create(n, H=H, u=jnp.asarray([-0.6]))
 
-    def test_fused_flags_infeasible_start(self):
-        """The fused primal kernel cannot move an infeasible x0 (NaN
-        barrier); the returned x0 has f(x0) < p* i.e. a NEGATIVE measured
-        gap — the stall flag must use |gap| AND the violation residual,
-        not a one-sided gap < tol test."""
-        prob = self._infeasible_prob()
-        x0 = jnp.full((prob.n,), 1.0 / prob.n)    # violates P(A) >= 0.6
-        sol = prob.solve_jittable(x0, method="fused")
-        assert float(sol.ineq_res) > 1e-3
-        assert bool(sol.stalled)
-
-    def test_fused_runs_on_cpu_without_monkeypatch(self):
-        """solve_jittable('fused') must pass interpret off-TPU itself
-        (like solve_dual_fused) instead of relying on test monkeypatches."""
-        n = 16
-        I_A = np.zeros(n); I_A[:4] = 1.0
-        prob = DistKL.create(n, H=jnp.asarray(-I_A)[None],
-                             u=jnp.asarray([-0.4]))
-        w = 0.45
-        x0 = jnp.asarray(w * I_A / 4 + (1 - w) * (1 - I_A) / (n - 4))
-        sol = prob.solve_jittable(x0, method="fused")
-        assert not bool(sol.stalled)
-        assert float(jnp.abs(sol.duality_gap)) < 1e-4
-
     def test_create_dtype_follows_inputs(self):
         """f32 H/u must stay f32 under jax_enable_x64 (the canonical-float
         default upcast pushed the Pallas kernel off its x32 trace guard);
@@ -929,7 +910,7 @@ class TestDeepReviewFixes:
     def test_solve_dual_follows_objective_dtype(self):
         """solve_dual's z0/constraints follow the dual objective's data
         dtype — an f32 problem must not silently run its whole dual
-        barrier in (TPU-emulated) f64."""
+        barrier in f64."""
         n = 12
         I_A = np.zeros(n); I_A[:3] = 1.0
         prob = DistKL.create(n, H=jnp.asarray(-I_A, jnp.float32)[None],
@@ -1166,7 +1147,7 @@ class TestGeneralPrior:
                              u=jnp.zeros((1,)), prior=p)
         pA = float(jnp.sum(p[:6]))
         us = -jnp.linspace(pA + 0.05, min(pA + 0.3, 0.9), B)[:, None]
-        sol = prob.solve_certified_batch(us)
+        sol = prob.solve_certified_batch(us, interpret=True)
         assert float(jnp.max(jnp.abs(sol.duality_gap))) < 1e-8
         assert float(jnp.max(sol.ineq_res)) < 1e-8
         assert not bool(jnp.any(sol.stalled))

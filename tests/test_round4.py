@@ -36,13 +36,13 @@ def _kl_fixture(n, B, dtype=jnp.float32):
 
 
 class TestCertifiedShapeIndependent:
-    """Contract gap <= 1e-8 at n = 1000 / 10000 through the same entry the
-    TPU ladder runs (f32 kernel route in interpret mode + f64 finish)."""
+    """Contract gap <= 1e-8 at n = 1000 / 10000 through the fleet entry
+    (f32 kernel route in interpret mode + f64 finish)."""
 
     @pytest.mark.parametrize("n,B", [(1000, 4), (10000, 2)])
     def test_certified_contract_large_n(self, n, B):
         prob, H, u = _kl_fixture(n, B)
-        s = prob.solve_certified_batch(u)
+        s = prob.solve_certified_batch(u, interpret=True)
         assert float(jnp.max(jnp.abs(s.duality_gap))) <= 1e-8
         assert float(jnp.max(s.ineq_res)) <= 1e-10
         assert float(jnp.max(s.eq_gap)) <= 1e-10
@@ -53,10 +53,10 @@ class TestCertifiedShapeIndependent:
         # 2 f64 Newton steps land far below the contract (the round-3
         # default of 3 was margin, measured again here at n=1000)
         prob, H, u = _kl_fixture(1000, 4)
-        s2 = prob.solve_certified_batch(u, polish_steps=2)
-        s3 = prob.solve_certified_batch(u, polish_steps=3)
+        s2 = prob.solve_certified_batch(u, polish_steps=2, interpret=True)
+        s3 = prob.solve_certified_batch(u, polish_steps=3, interpret=True)
         assert float(jnp.max(jnp.abs(s2.duality_gap))) <= 1e-10
-        # the third step buys nothing beyond the emulation/rounding floor
+        # the third step buys nothing beyond the rounding floor
         assert float(jnp.max(jnp.abs(s3.duality_gap))) <= \
             max(1e-12, 10 * float(jnp.max(jnp.abs(s2.duality_gap))))
 
@@ -148,64 +148,6 @@ class TestCertifyGapIsMeasured:
             assert abs((f - g) - float(s.duality_gap[i])) < 1e-12
 
 
-class TestFusedCertKernel:
-    """The round-4 in-kernel certificate (pallas_kl_dual.py::
-    kl_dual_fused_cert, double-single float32x2 epilogue): the gap it
-    reports must match an independent host-f64 recompute at the SAME z —
-    the certificate is measured, never scheduled.  Interpret mode runs the
-    kernel body as XLA ops, which also exercises the ds library's
-    optimization_barrier guards against the simplifier's unsound
-    ``(b + c) - c -> b`` rewrite (ds.py COMPILER HAZARD: without the
-    guard this test fails at ~1e-8, not ~1e-13)."""
-
-    def test_in_kernel_certificate_matches_host(self):
-        n, B = 32, 8
-        I_A = np.zeros(n); I_A[:2] = 1.0
-        I_B = np.zeros(n); I_B[n // 2:] = 1.0
-        H = np.stack([-I_A, I_B]).astype(np.float32)
-        rng = np.random.default_rng(3)
-        pA = rng.uniform(0.2, 0.5, B); pB = rng.uniform(0.55, 0.8, B)
-        u = np.stack([-pA, pB], axis=1).astype(np.float32)
-        prob = DistKL.create(n, H=jnp.asarray(H), u=jnp.zeros((2,)),
-                             dtype=jnp.float32)
-        s = prob.solve_certified_batch(jnp.asarray(u), steps=10,
-                                       polish_steps=2, fused_cert=True)
-        x = np.asarray(s.x, np.float64)
-        lam = np.asarray(s.lam, np.float64)
-        nu = np.asarray(s.nu, np.float64)
-        gap = np.asarray(s.duality_gap, np.float64)
-        lp = -np.log(np.float64(n))
-        Bmat = np.concatenate([H.astype(np.float64), np.ones((1, n))])
-        for i in range(B):
-            z = np.concatenate([lam[i], nu[i]])
-            w = np.concatenate([u[i].astype(np.float64), [1.0]])
-            g = -(w @ z + np.sum(np.exp(lp - Bmat.T @ z - 1.0)))
-            xi = np.maximum(x[i], 1e-300)
-            f = np.sum(xi * (np.log(xi) - lp))
-            assert abs((f - g) - gap[i]) < 1e-12
-            assert abs(gap[i]) < 1e-10
-        assert np.max(np.asarray(s.ineq_res)) < 1e-10
-        assert np.max(np.asarray(s.eq_gap)) < 1e-10
-        assert not bool(np.any(np.asarray(s.stalled)))
-
-    def test_fused_cert_agrees_with_xla_finish(self):
-        n, B = 32, 8
-        I_A = np.zeros(n); I_A[:2] = 1.0
-        I_B = np.zeros(n); I_B[n // 2:] = 1.0
-        H = np.stack([-I_A, I_B]).astype(np.float32)
-        u = np.column_stack([-np.linspace(0.25, 0.45, B),
-                             np.linspace(0.6, 0.75, B)]).astype(np.float32)
-        prob = DistKL.create(n, H=jnp.asarray(H), u=jnp.zeros((2,)),
-                             dtype=jnp.float32)
-        s1 = prob.solve_certified_batch(jnp.asarray(u), steps=10,
-                                        polish_steps=2, fused_cert=True)
-        s2 = prob.solve_certified_batch(jnp.asarray(u), steps=10,
-                                        polish_steps=2, fused_cert=False)
-        assert np.max(np.abs(np.asarray(s1.x) - np.asarray(s2.x))) < 1e-11
-        assert np.max(np.abs(np.asarray(s1.duality_gap))) < 1e-10
-        assert np.max(np.abs(np.asarray(s2.duality_gap))) < 1e-10
-
-
 class TestDualDim8:
     """Round-4 widening: the fused dual kernel's in-register envelope grew
     from dual dim <= 5 to <= 8 (the same straight-line-Cholesky envelope
@@ -237,7 +179,7 @@ class TestDualDim8:
             A=None if A is None else jnp.asarray(A, jnp.float64),
             r=None if r is None else jnp.asarray(r, jnp.float64))
         s_fast = prob.solve(method="dual_fast")
-        s_fused = prob.solve(method="dual_fused")
+        s_fused = prob.solve_dual_fused(interpret=True)
         assert float(jnp.max(jnp.abs(s_fast.x - s_fused.x))) < 1e-6
         assert float(jnp.abs(s_fused.duality_gap)) < 1e-8
         assert not bool(s_fused.stalled)
@@ -264,10 +206,8 @@ class TestDualDim8:
 
     @pytest.mark.parametrize("k,mE", [(5, 0), (7, 0)])
     def test_certified_contract_dim6_8(self, k, mE):
-        # the XLA-finish fallback (what off-TPU/auto uses) at the widened
-        # dims; the in-kernel ds epilogue at dim > 5 is validated on
-        # hardware (docs/SCALING.md) — its interpret-mode XLA compile
-        # takes minutes, too slow for the suite
+        # the f32 kernel (interpreted) + native-f64 finish at the widened
+        # dims
         n, B = 24, 3
         H, u, A, r = self._random_family(k, mE, n, seed=1)
         prob = DistKL.create(n, H=jnp.asarray(H, jnp.float32),
@@ -275,7 +215,7 @@ class TestDualDim8:
                              dtype=jnp.float32)
         U = jnp.asarray(np.stack([u * s for s in (1.0, 1.05, 1.1)]),
                         jnp.float32)
-        s = prob.solve_certified_batch(U)
+        s = prob.solve_certified_batch(U, interpret=True)
         assert float(jnp.max(jnp.abs(s.duality_gap))) <= 1e-8
         assert float(jnp.max(s.ineq_res)) <= 1e-10
         assert not bool(jnp.any(s.stalled))

@@ -11,15 +11,11 @@
 2. The multi-boundary cold start that motivated the projected candidate,
    pinned at the exact (k=13, mE=2) family drawn below: 16 steps reached
    only gap ~9e-6 pre-fix, ~1e-10 post-fix.
-3. fused_cert=True on non-f32 data raises (ADVICE round 4: the kernel
-   would cast and certify a ROUNDED problem).
-4. ds._split carries the simplifier guard (ADVICE round 4): splitting a
-   materialized constant under jit must stay error-free.
-5. Batched phase-I infeasibility certificates: a mixed
+3. Batched phase-I infeasibility certificates: a mixed
    feasible/infeasible fleet flags EXACTLY the infeasible instances, both
    via ``feasibility_analysis`` (s* > 0) and via the certified batch
    route's stall flags (VERDICT round 4 item 5).
-6. The game-dual fleet screen (``DistKL.feasibility_screen_batch``):
+4. The game-dual fleet screen (``DistKL.feasibility_screen_batch``):
    measured two-sided certificates bracket brute-force LP, flags match
    the generic phase-I, anti-parallel/equality-fold degeneracies decide,
    the f32 returned point is strictly positive and f64-audited feasible,
@@ -58,7 +54,7 @@ class TestDualDim16:
             A=None if A is None else jnp.asarray(A, jnp.float64),
             r=None if r is None else jnp.asarray(r, jnp.float64))
         s_fast = prob.solve(method="dual_fast")
-        s_fused = prob.solve(method="dual_fused")
+        s_fused = prob.solve_dual_fused(interpret=True)
         assert float(jnp.max(jnp.abs(s_fast.x - s_fused.x))) < 1e-6
         assert float(jnp.abs(s_fused.duality_gap)) < 1e-8
         assert not bool(s_fused.stalled)
@@ -73,16 +69,14 @@ class TestDualDim16:
         prob = DistKL.create(
             n, H=jnp.asarray(H, jnp.float64), u=jnp.asarray(u, jnp.float64),
             A=jnp.asarray(A, jnp.float64), r=jnp.asarray(r, jnp.float64))
-        s = prob.solve_dual_fused(steps=16)
+        s = prob.solve_dual_fused(steps=16, interpret=True)
         assert float(jnp.abs(s.duality_gap)) < 1e-8
         assert float(jnp.max(jnp.abs(s.lam))) == 0.0   # all slack, purged
         assert not bool(s.stalled)
 
     @pytest.mark.parametrize("k,mE", [(11, 0), (15, 0)])
     def test_certified_contract_dim12_16(self, k, mE):
-        # the XLA-finish fallback (off-TPU auto path); the in-kernel ds
-        # epilogue at wide dims is validated on hardware (docs/SCALING.md)
-        # — its interpret-mode XLA compile takes minutes
+        # the f32 kernel (interpreted) + native-f64 finish at dims 12/16
         n, B = 24, 3
         H, u, A, r = _family(k, mE, n, seed=1)
         prob = DistKL.create(n, H=jnp.asarray(H, jnp.float32),
@@ -90,7 +84,7 @@ class TestDualDim16:
                              dtype=jnp.float32)
         U = jnp.asarray(np.stack([u * s for s in (1.0, 1.05, 1.1)]),
                         jnp.float32)
-        s = prob.solve_certified_batch(U)
+        s = prob.solve_certified_batch(U, interpret=True)
         assert float(jnp.max(jnp.abs(s.duality_gap))) <= 1e-8
         assert float(jnp.max(s.ineq_res)) <= 1e-10
         assert not bool(jnp.any(s.stalled))
@@ -142,53 +136,10 @@ class TestAntiParallelRows:
         prob = DistKL.create(n, H=jnp.asarray(H),
                              u=jnp.zeros((2,), jnp.float32),
                              dtype=jnp.float32)
-        s = prob.solve_certified_batch(u)
+        s = prob.solve_certified_batch(u, interpret=True)
         assert abs(float(s.duality_gap[0])) <= 1e-8
         assert float(s.ineq_res[0]) <= 1e-10
         assert not bool(s.stalled[0])
-
-
-class TestFusedCertDtypeGuard:
-    def test_fused_cert_true_on_f64_raises(self):
-        n = 16
-        H = jnp.asarray(np.eye(2, n), jnp.float64)
-        prob = DistKL.create(n, H=H, u=jnp.zeros((2,), jnp.float64))
-        U = jnp.full((2, 2), 0.5, jnp.float64)
-        with pytest.raises(ValueError, match="f32"):
-            prob.solve_certified_batch(U, fused_cert=True)
-
-
-class TestSplitGuard:
-    def test_split_of_constant_exact_under_jit(self):
-        # _split must survive the simplifier: hi + lo == a exactly and
-        # hi must carry at most 12 significant mantissa bits (Dekker);
-        # an applied (c - (c - a)) -> a rewrite would give hi == a, lo == 0
-        from cvx_tpu.ops.ds import _split
-
-        a = np.float32(np.pi)
-
-        @jax.jit
-        def f():
-            return _split(jnp.full((8,), a, jnp.float32))
-
-        hi, lo = f()
-        hi = np.asarray(hi, np.float64); lo = np.asarray(lo, np.float64)
-        assert np.all(hi + lo == np.float64(a))
-        assert np.all(lo != 0.0)          # the rewrite would zero it
-        # two_prod built on it stays error-free for a worst-case pair
-        from cvx_tpu.ops.ds import two_prod
-        b = np.float32(1.0 + 2.0 ** -23)
-
-        @jax.jit
-        def g():
-            p, e = two_prod(jnp.full((8,), a, jnp.float32),
-                            jnp.full((8,), b, jnp.float32))
-            return p, e
-
-        p, e = g()
-        exact = np.float64(a) * np.float64(b)
-        got = np.asarray(p, np.float64) + np.asarray(e, np.float64)
-        assert np.all(got == exact)
 
 
 class TestSeparableCertify:
@@ -350,7 +301,8 @@ class TestBatchedInfeasibility:
         prob = DistKL.create(n, H=jnp.asarray(H, jnp.float32),
                              u=jnp.zeros((2,), jnp.float32),
                              dtype=jnp.float32)
-        s = prob.solve_certified_batch(jnp.asarray(u, jnp.float32))
+        s = prob.solve_certified_batch(jnp.asarray(u, jnp.float32),
+                                       interpret=True)
         flagged = np.asarray(s.stalled)
         assert np.array_equal(flagged, bad), (flagged, bad)
         # the feasible instances still certify
@@ -489,7 +441,7 @@ class TestFeasibilityScreen:
         assert bool(((x @ H.T) - u[feas] < 0).all())
 
     def test_near_saturated_softmax_stays_finite(self):
-        # pinned from the round-5 80k TPU sweep: instance 6049 of the
+        # pinned from the round-5 80k-instance sweep: instance 6049 of the
         # (k=11, pair) family NaN'd BOTH bounds in f32 — near-saturated
         # softmax sends the Gauss-Newton matrix Hm -> 0 while its
         # construction rounding stays O(eps * t), so trace-only damping
